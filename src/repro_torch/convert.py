@@ -1,0 +1,60 @@
+"""State carried across from the reference package.
+
+:func:`from_reference` turns the reference's arrays, handed over as numpy
+(the port never imports ``jax`` or ``repro``), into the port's objects on
+a chosen device, so that both packages compute over the identical state:
+
+* ``{"targets"}`` (a ``SepLRModel``) -> :class:`SepLRModel`
+* the six :class:`TopKIndex` fields -> :class:`TopKIndex`
+* ``{"T_sorted", "order", "block_max_norm", "super_max_norm", "num_real",
+  "block_m", "superblock"}`` (a ``MIPSCatalog``) -> :class:`MIPSCatalog`
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.index import TopKIndex
+from repro_torch.core.seplr import SepLRModel
+from repro_torch.kernels.ops import MIPSCatalog
+
+MODEL_FIELDS = frozenset({"targets"})
+INDEX_FIELDS = frozenset(f.name for f in dataclasses.fields(TopKIndex))
+CATALOG_FIELDS = frozenset({"T_sorted", "order", "block_max_norm",
+                            "super_max_norm", "num_real", "block_m",
+                            "superblock"})
+
+_INT_FIELDS = {"order_desc", "rank_desc", "norm_order"}
+
+
+def from_reference(arrays: Mapping[str, Any], device=None, name=None):
+    """The port's object for the reference state in ``arrays`` (a mapping
+    from the reference's field names to numpy arrays or ints), on
+    ``device`` (``None`` = ``cuda``). The key set names the object."""
+    dev = resolve_device(device)
+    keys = frozenset(arrays)
+    if keys == MODEL_FIELDS:
+        return SepLRModel(np.array(arrays["targets"], np.float32),
+                          name=name or "seplr", device=dev)
+    if keys == INDEX_FIELDS:
+        def put(f):
+            dt = np.int32 if f in _INT_FIELDS else np.float32
+            return torch.tensor(np.asarray(arrays[f], dt), device=dev)
+        return TopKIndex(**{f: put(f) for f in sorted(INDEX_FIELDS)})
+    if keys == CATALOG_FIELDS:
+        return MIPSCatalog.from_state(
+            np.asarray(arrays["T_sorted"], np.float32),
+            np.asarray(arrays["order"], np.int32),
+            np.asarray(arrays["block_max_norm"], np.float32),
+            np.asarray(arrays["super_max_norm"], np.float32),
+            int(arrays["num_real"]), int(arrays["block_m"]),
+            int(arrays["superblock"]), device=dev)
+    raise ValueError(
+        f"unrecognised reference state with fields {sorted(keys)}; expected "
+        f"{sorted(MODEL_FIELDS)}, {sorted(INDEX_FIELDS)} or "
+        f"{sorted(CATALOG_FIELDS)}")

@@ -1,0 +1,278 @@
+"""Top-K query serving: the paper's inference engine as a service layer.
+
+``TopKServer`` owns a SEP-LR catalogue plus a shared
+:class:`repro_torch.core.engines.EngineContext` on a device and serves
+batched queries through any engine of the registry, addressed by name
+(``naive`` / ``norm`` / ``topk_mips``, alias ``pallas``). Requests are
+chunked by ``max_batch``; per-query pruning statistics (scores computed,
+depth) and latencies are aggregated per engine in :class:`ServeStats`.
+
+The catalogue is a static snapshot: the reference's never-mutated fast
+path. Streaming mutations, sharded catalogues, deadlines and the admission
+ladder belong to later slices of the port and raise ``NotImplementedError``.
+
+``TwoStageRanker`` is the production recsys pattern: exact SEP-LR top-N
+retrieval followed by full-model re-ranking of the N retrieved candidates.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.engines import (CostTable, EngineContext,
+                                      batch_bucket, engine_names, get_engine)
+from repro_torch.core.naive import TopKResult
+from repro_torch.core.seplr import SepLRModel
+
+#: Ring length for per-batch latency percentiles: enough batches for a
+#: stable p99, bounded so a long-lived server never grows its stats.
+LATENCY_RING = 512
+
+_STREAMING = "the streaming-tier slice (ROADMAP queue A)"
+_ADMISSION = "the budgets-and-admission-ladder slice (ROADMAP queue A)"
+
+
+def _ring() -> collections.deque:
+    return collections.deque(maxlen=LATENCY_RING)
+
+
+def _percentile(ring: collections.deque, q: float) -> float:
+    return float(np.percentile(np.asarray(ring), q)) if ring else 0.0
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Per-engine serving statistics.
+
+    ``us_per_query`` is the lifetime mean; ``p50_us``/``p95_us``/``p99_us``
+    are percentiles over a bounded ring of per-batch per-query latencies,
+    and ``req_p50_us``/... over a ring of per-REQUEST latencies (one
+    :meth:`TopKServer.query` call, all its chunks). ``sign_batches``
+    counts served batches per sign bucket (empty until the list engines
+    are ported). Counter updates take a lock.
+    """
+
+    n_queries: int = 0
+    n_scored: int = 0
+    total_time_s: float = 0.0
+    depth_sum: int = 0
+    lat_us_ring: collections.deque = dataclasses.field(
+        default_factory=_ring, repr=False, compare=False)
+    req_lat_us_ring: collections.deque = dataclasses.field(
+        default_factory=_ring, repr=False, compare=False)
+    sign_batches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    @property
+    def scores_per_query(self) -> float:
+        return self.n_scored / max(self.n_queries, 1)
+
+    @property
+    def us_per_query(self) -> float:
+        return 1e6 * self.total_time_s / max(self.n_queries, 1)
+
+    def record_batch(self, n: int, n_scored: int, depth_sum: int,
+                     dt_s: float, sign_label: str = "") -> None:
+        """Fold one served batch in."""
+        with self._lock:
+            self.n_queries += n
+            self.n_scored += n_scored
+            self.depth_sum += depth_sum
+            self.total_time_s += dt_s
+            if sign_label:
+                self.sign_batches[sign_label] = (
+                    self.sign_batches.get(sign_label, 0) + 1)
+            self.lat_us_ring.append(1e6 * dt_s / max(n, 1))
+
+    def latency_percentile(self, q: float) -> float:
+        """q-th percentile (0-100) of recent per-batch latencies, in us."""
+        with self._lock:
+            return _percentile(self.lat_us_ring, q)
+
+    @property
+    def p50_us(self) -> float:
+        return self.latency_percentile(50.0)
+
+    @property
+    def p95_us(self) -> float:
+        return self.latency_percentile(95.0)
+
+    @property
+    def p99_us(self) -> float:
+        return self.latency_percentile(99.0)
+
+    def record_request_latency(self, us: float) -> None:
+        """One caller request completed ``us`` microseconds after it was
+        submitted."""
+        with self._lock:
+            self.req_lat_us_ring.append(float(us))
+
+    def request_percentile(self, q: float) -> float:
+        with self._lock:
+            return _percentile(self.req_lat_us_ring, q)
+
+    @property
+    def req_p50_us(self) -> float:
+        return self.request_percentile(50.0)
+
+    @property
+    def req_p95_us(self) -> float:
+        return self.request_percentile(95.0)
+
+    @property
+    def req_p99_us(self) -> float:
+        return self.request_percentile(99.0)
+
+
+def _to_host(res: TopKResult) -> TopKResult:
+    return TopKResult(*(x.detach().cpu().numpy() for x in res))
+
+
+class TopKServer:
+    """Exact top-K serving over a static catalogue on ``device``
+    (``None`` = ``cuda``)."""
+
+    def __init__(self, model: SepLRModel, max_batch: int = 64,
+                 block_size: int = 256, policy=None, n_shards: int = 0,
+                 cost_table: Optional[CostTable] = None, device=None):
+        if policy is not None:
+            raise NotImplementedError(
+                f"AdmissionPolicy comes with {_ADMISSION}")
+        if n_shards > 0:
+            raise NotImplementedError(
+                f"n_shards > 0 (the LSM ladder) comes with {_STREAMING}")
+        self.model = model
+        self.device = resolve_device(device)
+        self.cost_table = cost_table if cost_table is not None \
+            else CostTable()
+        self.max_batch = max_batch
+        self.block_size = block_size
+        self.ctx = EngineContext(model.targets, block_size=block_size,
+                                 cost_table=self.cost_table,
+                                 device=self.device)
+        self.stats: Dict[str, ServeStats] = {}
+
+    @staticmethod
+    def available_engines() -> List[str]:
+        """Registry names accepted by :meth:`query`'s ``method=``."""
+        return engine_names()
+
+    def warmup(self, k: int, batch_sizes=None,
+               engines=None) -> "TopKServer":
+        """Build every engine's lazy state ahead of traffic (index,
+        layouts, kernel catalogue, the CUDA library) and prime the cost
+        table; see :meth:`EngineContext.warmup`."""
+        sizes = tuple(batch_sizes) if batch_sizes else (1, self.max_batch)
+        self.ctx.warmup(k, batch_sizes=sizes, engines=engines)
+        return self
+
+    # -- streaming mutations: a later slice ---------------------------------
+
+    def add_targets(self, rows):
+        raise NotImplementedError(f"add_targets comes with {_STREAMING}")
+
+    def delete_targets(self, gids):
+        raise NotImplementedError(f"delete_targets comes with {_STREAMING}")
+
+    def update_targets(self, gids, rows):
+        raise NotImplementedError(f"update_targets comes with {_STREAMING}")
+
+    def _record(self, method: str, res: TopKResult, dt: float,
+                n: int) -> None:
+        s = self.stats.setdefault(method, ServeStats())
+        s.record_batch(n, int(np.sum(res.n_scored)),
+                       int(np.sum(res.depth)), dt)
+
+    def query(self, U, k: int, method: str = "bta",
+              budget: Optional[int] = None,
+              deadline_ms: Optional[float] = None) -> TopKResult:
+        """U: [B, R] (or [R]). Returns a host (numpy) ``TopKResult``
+        batched like U.
+
+        ``method`` is any registry name or alias from
+        :meth:`available_engines`; unknown names raise ``ValueError``
+        listing the registry. ``budget`` caps the scan of budget-capable
+        engines (norm-order rows); the result's ``upper`` then bounds every
+        un-scanned item. Each chunk of ``max_batch`` queries is timed on
+        the host clock up to its result's arrival on the host.
+
+        Validation: non-positive ``k``/``budget``, negative
+        ``deadline_ms``, wrong-rank or >2-D ``U``, and non-finite HOST
+        query values raise ``ValueError``.
+        """
+        engine = get_engine(method)
+        if int(k) <= 0:
+            raise ValueError(f"k must be a positive int, got {k!r}")
+        if budget is not None and int(budget) <= 0:
+            raise ValueError(
+                f"budget must be a positive int or None, got {budget!r}")
+        if deadline_ms is not None and float(deadline_ms) < 0:
+            raise ValueError(
+                f"deadline_ms must be >= 0 or None, got {deadline_ms!r}")
+        if deadline_ms is not None:
+            raise NotImplementedError(f"deadline_ms comes with {_ADMISSION}")
+        # device-resident inputs stay where they are; host inputs are
+        # checked for finiteness and moved per chunk
+        if isinstance(U, torch.Tensor):
+            U_all = torch.atleast_2d(U)
+        else:
+            U_all = np.atleast_2d(np.asarray(U, np.float32))
+        if U_all.ndim != 2:
+            raise ValueError(
+                f"U must be [B, R] or [R], got shape {tuple(U_all.shape)}")
+        rank = self.ctx.rank
+        if U_all.shape[1] != rank:
+            raise ValueError(
+                f"query rank {U_all.shape[1]} != catalogue rank {rank}")
+        if isinstance(U_all, np.ndarray) and not np.all(np.isfinite(U_all)):
+            bad = int(np.argwhere(~np.isfinite(U_all).all(axis=1))[0, 0])
+            raise ValueError(f"query row {bad} contains NaN/Inf values")
+        t_admit = time.perf_counter()
+        req_stats = self.stats.setdefault(engine.name, ServeStats())
+        outs = []
+        for i in range(0, U_all.shape[0], self.max_batch):
+            chunk = U_all[i: i + self.max_batch]
+            n = chunk.shape[0]
+            t0 = time.perf_counter()
+            res = _to_host(engine.run(self.ctx, chunk, k, budget=budget))
+            dt = time.perf_counter() - t0
+            key = engine.name if budget is None else f"{engine.name}@budget"
+            self.cost_table.observe(key, batch_bucket(n), "", dt / max(n, 1))
+            self._record(engine.name, res, dt, n)
+            outs.append(res)
+        req_stats.record_request_latency(1e6 * (time.perf_counter() - t_admit))
+        return TopKResult(*(np.concatenate(xs, axis=0) for xs in zip(*outs)))
+
+
+class TwoStageRanker:
+    """Exact SEP-LR retrieval -> full-model re-rank.
+
+    rerank_fn(query_batch, candidate_ids) -> scores of the retrieved set.
+    The retrieval engine is addressed by registry name, as in
+    :meth:`TopKServer.query`.
+    """
+
+    def __init__(self, retrieval: TopKServer,
+                 rerank_fn: Callable[[Dict, np.ndarray], np.ndarray],
+                 retrieve_n: int = 100):
+        self.retrieval = retrieval
+        self.rerank_fn = rerank_fn
+        self.retrieve_n = retrieve_n
+
+    def rank(self, query_batch: Dict, U, k: int, method: str = "bta"):
+        get_engine(method)  # fail fast on unknown engine names
+        res = self.retrieval.query(U, self.retrieve_n, method=method)
+        cand = np.asarray(res.indices)                       # [B, N]
+        rerank = self.rerank_fn(query_batch, cand)           # [B, N]
+        order = np.argsort(-rerank, axis=1)[:, :k]
+        return (np.take_along_axis(cand, order, axis=1),
+                np.take_along_axis(rerank, order, axis=1))
