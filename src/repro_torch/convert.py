@@ -8,6 +8,9 @@ a chosen device, so that both packages compute over the identical state:
 * the six :class:`TopKIndex` fields -> :class:`TopKIndex`
 * ``{"T_sorted", "order", "block_max_norm", "super_max_norm", "num_real",
   "block_m", "superblock"}`` (a ``MIPSCatalog``) -> :class:`MIPSCatalog`
+* the eight :class:`ListMajorLayout` fields (the six prefix tiles, any of
+  them ``None`` for a single-sided layout, ``rank_by_item`` and
+  ``prefix_depth``) -> :class:`ListMajorLayout`
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.index import TopKIndex
+from repro_torch.core.layout import ListMajorLayout
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.kernels.ops import MIPSCatalog
 
@@ -29,7 +33,15 @@ CATALOG_FIELDS = frozenset({"T_sorted", "order", "block_max_norm",
                             "super_max_norm", "num_real", "block_m",
                             "superblock"})
 
-_INT_FIELDS = {"order_desc", "rank_desc", "norm_order"}
+LIST_FIELDS = frozenset(f.name for f in dataclasses.fields(ListMajorLayout))
+
+_INT_FIELDS = {"order_desc", "rank_desc", "norm_order", "head_ids",
+               "tail_ids", "head_ranks", "tail_ranks", "rank_by_item"}
+
+
+def _put(arrays, f, dev):
+    dt = np.int32 if f in _INT_FIELDS else np.float32
+    return torch.tensor(np.asarray(arrays[f], dt), device=dev)
 
 
 def from_reference(arrays: Mapping[str, Any], device=None, name=None):
@@ -42,10 +54,13 @@ def from_reference(arrays: Mapping[str, Any], device=None, name=None):
         return SepLRModel(np.array(arrays["targets"], np.float32),
                           name=name or "seplr", device=dev)
     if keys == INDEX_FIELDS:
-        def put(f):
-            dt = np.int32 if f in _INT_FIELDS else np.float32
-            return torch.tensor(np.asarray(arrays[f], dt), device=dev)
-        return TopKIndex(**{f: put(f) for f in sorted(INDEX_FIELDS)})
+        return TopKIndex(**{f: _put(arrays, f, dev)
+                            for f in sorted(INDEX_FIELDS)})
+    if keys == LIST_FIELDS:
+        return ListMajorLayout(
+            prefix_depth=int(arrays["prefix_depth"]),
+            **{f: None if arrays[f] is None else _put(arrays, f, dev)
+               for f in sorted(LIST_FIELDS - {"prefix_depth"})})
     if keys == CATALOG_FIELDS:
         return MIPSCatalog.from_state(
             np.asarray(arrays["T_sorted"], np.float32),
@@ -56,5 +71,5 @@ def from_reference(arrays: Mapping[str, Any], device=None, name=None):
             int(arrays["superblock"]), device=dev)
     raise ValueError(
         f"unrecognised reference state with fields {sorted(keys)}; expected "
-        f"{sorted(MODEL_FIELDS)}, {sorted(INDEX_FIELDS)} or "
-        f"{sorted(CATALOG_FIELDS)}")
+        f"{sorted(MODEL_FIELDS)}, {sorted(INDEX_FIELDS)}, "
+        f"{sorted(CATALOG_FIELDS)} or {sorted(LIST_FIELDS)}")

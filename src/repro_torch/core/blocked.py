@@ -1,28 +1,271 @@
-"""Norm-ordered Cauchy-Schwarz block pruning (beyond the paper; exact).
+"""The Block Threshold Algorithm (BTA) and the norm-ordered block scan.
 
-The catalogue is scanned in decreasing-norm order, one contiguous
-``[block, R]`` tile per step. After block ``b`` every unseen score is
-bounded by ``||u|| * norms_sorted[(b+1)*block]``; a query stops as soon as
-its running K-th best reaches that bound.
+**BTA** restructures the paper's Threshold Algorithm around dense work:
+one step pops a depth block of ``block_size`` entries from all R sorted
+lists (``R * block_size`` candidates), scores the fresh ones, folds them
+into the running top-K, and evaluates the Eq. 3 stopping bound at the
+block's LAST depth — still a valid bound for every unseen item because
+the lists are monotone, so the result is exact. ``block_size=1``
+recovers TA's rounds (:func:`repro_torch.core.threshold.threshold_topk_np`
+is the item-at-a-time oracle).
 
-The reference runs the scan as one ``lax.while_loop``; here it is a
-Python loop over device tensors. Its continuation test
-``any(lower < upper)`` reads one boolean back to the host per step — one
-device-to-host synchronisation per block, accepted in this slice.
+With the ``list_major`` layout a scan runs in two phases: the contiguous
+list PREFIX (tile slices, no gathers; for a batch, one shared tile per
+step), then, for a query that outlives the prefix, the gather-side TAIL,
+which resumes at the query's own absolute block cursor. The tail scores
+its candidates with kernel B4
+(:func:`repro_torch.kernels.gather_scores.gather_scores`): on a CUDA
+tensor the kernel is the only tail scorer there is. The batched tail is
+one loop over the lanes still live, each at its own cursor, gated on its
+own bound and step cap; its results and ``n_scored``/``depth``/``upper``
+equal the reference's vmapped per-lane tail lane for lane.
+
+The loops read one boolean back to the host per step (``any lane
+live``); callers may pass a :class:`collections.Counter` as ``steps`` to
+count them (``"prefix"``, ``"tail"`` and ``"gather"`` iterations).
+
+**The norm scan** walks the catalogue in decreasing-norm order, one
+contiguous ``[block, R]`` tile per step. After block ``b`` every unseen
+score is bounded by ``||u|| * norms_sorted[(b+1)*block]``; a query stops
+as soon as its running K-th best reaches that bound. Its continuation
+test is the same one-boolean host read per block.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
 
-from repro_torch.core.driver import merge_block_into_carry_batched
+from repro_torch.core.driver import (BatchedScanState, NEG_INF,
+                                     batched_pruned_scan,
+                                     initial_batched_state,
+                                     merge_block_into_carry_batched)
+from repro_torch.core.index import TopKIndex
 from repro_torch.core.naive import TopKResult
+from repro_torch.core.strategies import (batched_list_prefix_strategy,
+                                         rank_gather_first_keys,
+                                         sign_bucket)
+from repro_torch.kernels.gather_scores import gather_scores
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _count(steps: Optional[collections.Counter], key: str, n: int) -> None:
+    if steps is not None:
+        steps[key] += n
+
+
+def _batched_list_tail(targets, order_desc, t_sorted_desc, rank_by_item, U,
+                       k, block_size, max_blocks, state: BatchedScanState):
+    """The gather-side list scan of a batch, resumed from ``state``: ONE
+    loop whose every step serves the lanes still live.
+
+    Lane ``b`` resumes at its own absolute block cursor ``state.steps[b]``
+    and takes a step while ``cursor < cap`` and ``lower < upper`` hold for
+    it. A step pops a depth block of ``block_size`` entries from all R
+    lists: its candidates are ``order_desc`` at the block's depths with
+    the lane's own per-list direction flip (depth ``d`` of list ``r``
+    reads position ``M-1-d`` when ``u_r < 0``; ``[L, R*block]``), their
+    freshness comes from :func:`rank_gather_first_keys`, one B4 launch
+    scores the ``[L, C]`` ids of all ``L`` live lanes against their
+    queries, and the Eq. 3 bound is taken at the block's last depth,
+    still valid for every unseen item because the lists are monotone.
+    Only the live lanes are gathered. Returns the result (``depth`` in
+    blocks) and the loop's iteration count.
+    """
+    R, M = order_desc.shape
+    dev = U.device
+    n_steps = _cdiv(M, block_size)
+    cap = n_steps if max_blocks < 0 else min(max_blocks, n_steps)
+    C = R * block_size
+    neg = U < 0
+    active_rep = (U != 0).repeat_interleave(block_size, dim=1)    # [B, C]
+    offs = torch.arange(block_size, device=dev)
+    slot_r = torch.arange(R, device=dev).repeat_interleave(block_size)
+    slot_depth = offs.repeat(R)                                    # [C]
+    list_base = torch.arange(R, device=dev) * M                    # [R]
+    od_flat = order_desc.reshape(-1)
+    t_flat = t_sorted_desc.reshape(-1)
+    cursor = state.steps.clone()
+    top_vals, top_ids = state.top_vals.clone(), state.top_ids.clone()
+    n_scored = state.n_scored.clone()
+    lower, upper = state.lower.clone(), state.upper.clone()
+    iters = 0
+    while True:
+        lanes = ((cursor < cap) & (lower < upper)).nonzero().squeeze(1)
+        if lanes.numel() == 0:          # the step's one host read
+            break
+        iters += 1
+        u = U[lanes]                                               # [L, R]
+        lneg = neg[lanes]
+        d0 = cursor[lanes].long() * block_size                     # [L]
+        cols = torch.clamp(d0[:, None] + offs, max=M - 1)          # [L, Bk]
+        cols_eff = torch.where(lneg[:, :, None], M - 1 - cols[:, None, :],
+                               cols[:, None, :])                   # [L, R, Bk]
+        ids = od_flat[list_base[None, :, None] + cols_eff].reshape(-1, C)
+        scores = gather_scores(targets, ids, u)                    # [L, C]
+        d = d0[:, None] + slot_depth                 # unclamped true depth
+        fresh = (active_rep[lanes]
+                 & (rank_gather_first_keys(rank_by_item, u, ids)
+                    == d * R + slot_r) & (d < M))
+        new_vals, new_ids = merge_block_into_carry_batched(
+            top_vals[lanes], top_ids[lanes],
+            torch.where(fresh, scores, NEG_INF), ids, k)
+        end = torch.clamp(d0 + block_size - 1, max=M - 1)          # [L]
+        end_eff = torch.where(lneg, M - 1 - end[:, None], end[:, None])
+        bound = torch.sum(u * t_flat[list_base + end_eff], dim=1)  # [L]
+        top_vals[lanes] = new_vals
+        top_ids[lanes] = new_ids
+        n_scored[lanes] += fresh.sum(1).to(torch.int32)
+        cursor[lanes] += 1
+        lower[lanes] = new_vals[:, k - 1]
+        upper[lanes] = bound
+    # certificate tightening, per lane: every block consumed -> -inf
+    upper = torch.where(cursor >= n_steps, NEG_INF, upper)
+    return TopKResult(top_vals, top_ids, n_scored, cursor, upper=upper), iters
+
+
+def _batched_two_phase_list_scan(targets, order_desc, t_sorted_desc, U, k,
+                                 block_size, max_blocks, layout, sign, dense,
+                                 steps=None) -> TopKResult:
+    """Batch-native prefix phase chained into the batched gather tail.
+
+    Phase 1 is :func:`repro_torch.core.driver.batched_pruned_scan` over
+    :func:`repro_torch.core.strategies.batched_list_prefix_strategy`; its
+    final state (per-lane absolute cursors in ``steps``) seeds
+    :func:`_batched_list_tail`. A batch whose every query certified inside
+    the prefix runs no tail step.
+    """
+    prefix = batched_list_prefix_strategy(layout, t_sorted_desc, U,
+                                          block_size, sign=sign, dense=dense)
+    _, bstate = batched_pruned_scan(U, prefix, k, targets.dtype,
+                                    max_steps=max_blocks, return_state=True)
+    res, iters = _batched_list_tail(targets, order_desc, t_sorted_desc,
+                                    layout.rank_by_item, U, k, block_size,
+                                    max_blocks, bstate)
+    _count(steps, "prefix", bstate.step)
+    _count(steps, "tail", iters)
+    return res
+
+
+def blocked_topk_batched_native(
+    targets: torch.Tensor,
+    order_desc: torch.Tensor,
+    t_sorted_desc: torch.Tensor,
+    U: torch.Tensor,
+    k: int,
+    block_size: int = 256,
+    max_blocks: int = -1,
+    layout=None,
+    sign: int = 0,
+    dense: bool = False,
+    steps: Optional[collections.Counter] = None,
+) -> TopKResult:
+    """Batch-native BTA over the list-prefix layout.
+
+    One shared prefix tile per step for the whole batch, per-query
+    freshness and liveness, then the batched gather tail, so results AND
+    ``n_scored``/``depth``/``upper`` equal each query's own
+    :func:`blocked_topk`. ``sign``/``dense`` are the batch's sign bucket
+    (:func:`repro_torch.core.strategies.sign_bucket`); the caller
+    guarantees they match ``U`` and that ``layout`` has the needed
+    side(s). ``depth`` is in list-depth rows.
+    """
+    if layout is None or layout.prefix_steps(block_size) < 1:
+        raise ValueError("blocked_topk_batched_native requires a "
+                         "ListMajorLayout with >= 1 prefix block")
+    if not layout.serves_sign(sign):
+        raise ValueError(
+            f"layout with sides {layout.sides!r} cannot serve sign "
+            f"bucket {sign} (mixed batches need both directions)")
+    k = min(int(k), targets.shape[0])
+    res = _batched_two_phase_list_scan(
+        targets, order_desc, t_sorted_desc, U, k, block_size, max_blocks,
+        layout, sign, dense, steps=steps)
+    return res._replace(depth=res.depth * block_size)
+
+
+def _gather_topk(targets, order_desc, t_sorted_desc, rank_by_item, U, k,
+                 block_size, max_blocks, steps) -> TopKResult:
+    """The gather path: the batched gather loop from step 0 (``depth`` in
+    list-depth rows)."""
+    k = min(int(k), targets.shape[0])
+    state = initial_batched_state(U.shape[0], k, targets.dtype, U.device)
+    res, iters = _batched_list_tail(targets, order_desc, t_sorted_desc,
+                                    rank_by_item, U, k, block_size,
+                                    max_blocks, state)
+    _count(steps, "gather", iters)
+    return res._replace(depth=res.depth * block_size)
+
+
+def _rank_by_item(order_desc: torch.Tensor) -> torch.Tensor:
+    """``[M, R]`` position of every item in every list: the inverse
+    permutations of ``order_desc``, transposed."""
+    R, M = order_desc.shape
+    pos = torch.arange(M, dtype=torch.int32, device=order_desc.device)
+    return torch.empty((M, R), dtype=torch.int32,
+                       device=order_desc.device).scatter_(
+        0, order_desc.T.long(), pos[:, None].expand(M, R))
+
+
+def blocked_topk(
+    targets: torch.Tensor,
+    order_desc: torch.Tensor,
+    t_sorted_desc: torch.Tensor,
+    u: torch.Tensor,
+    k: int,
+    block_size: int = 256,
+    max_blocks: int = -1,
+    rank_desc: Optional[torch.Tensor] = None,
+    layout=None,
+) -> TopKResult:
+    """Exact top-K of one query ``u: [R]`` by the Block Threshold
+    Algorithm: the batch of one of the batched drivers.
+
+    ``layout`` (a :class:`repro_torch.core.layout.ListMajorLayout` that
+    serves the query's sign) scores the blocks inside its prefix from
+    contiguous tiles and gathers only past it
+    (:func:`blocked_topk_batched_native`); without it every block is
+    gathered, with freshness from ``rank_desc`` (the index's inverse
+    permutations, worked out from ``order_desc`` when absent). All give
+    identical results and counts. ``max_blocks`` is the halted variant's
+    block budget; ``depth`` is in list-depth rows.
+    """
+    U = u[None, :]
+    if layout is not None and layout.prefix_steps(block_size) > 0:
+        sign, dense = sign_bucket(U)
+        res = blocked_topk_batched_native(
+            targets, order_desc, t_sorted_desc, U, k, block_size,
+            max_blocks, layout=layout, sign=sign, dense=dense)
+    else:
+        rank_by_item = (_rank_by_item(order_desc) if rank_desc is None
+                        else rank_desc.T)
+        res = _gather_topk(targets, order_desc, t_sorted_desc, rank_by_item,
+                           U, k, block_size, max_blocks, None)
+    return TopKResult(*(x[0] for x in res))
+
+
+def blocked_topk_batched(
+    targets: torch.Tensor,
+    index: TopKIndex,
+    U: torch.Tensor,
+    k: int,
+    block_size: int = 256,
+    max_blocks: int = -1,
+    steps: Optional[collections.Counter] = None,
+) -> TopKResult:
+    """BTA over a query batch ``U: [B, R]`` by the gather path (no list
+    layout): the batched gather loop from step 0, freshness from the
+    index's ``rank_desc`` read per candidate. Each query's result and
+    counts equal its own :func:`blocked_topk`, as the reference's vmap of
+    it does."""
+    return _gather_topk(targets, index.order_desc, index.t_sorted_desc,
+                        index.rank_desc.T, U, k, block_size, max_blocks,
+                        steps)
 
 
 def norm_pruned_topk_batched(

@@ -15,25 +15,36 @@ Registered engines (this slice of the port):
 name           exact  needs_index  backend  layout       algorithm
 =============  =====  ===========  =======  ===========  =====================
 ``naive``      yes    no           torch    row_major    full matmul + top-k
+``bta``        yes    yes          torch    list_major   Block Threshold
+                                                         Algorithm; tail
+                                                         scored by kernel B4
 ``norm``       yes    yes          torch    norm_major   Cauchy-Schwarz scan
 ``topk_mips``  yes    yes          cuda     norm_major   the scan as a CUDA
                                                          kernel (two-level
                                                          pre-screen)
 =============  =====  ===========  =======  ===========  =====================
 
-Aliases accepted by :func:`get_engine`: ``norm_pruned -> norm`` and
-``pallas -> topk_mips`` (the reference's name for its kernel engine).
+Every engine takes a batch (the reference's ``supports_batch`` is True
+for all of them). Aliases accepted by :func:`get_engine`:
+``blocked -> bta``, ``norm_pruned -> norm`` and ``pallas -> topk_mips``
+(the reference's name for its kernel engine).
 
-PyTorch runs eagerly and the kernel takes its sizes at run time, so there
-is no compile cache to key. Batches are still bucketed to powers of two
-(:func:`pad_to_bucket`) and the ``norm`` engine still pads its arrays to
-the catalogue's M-bucket, exactly as the reference, so results and pruning
-statistics match it field for field. In place of the reference's trace
-counters, ``topk_mips.launches`` counts the CUDA kernel's launches.
+PyTorch runs eagerly and the kernels take their sizes at run time, so
+there is no compile cache to key. Batches are still bucketed to powers of
+two (:func:`pad_to_bucket`) and the ``norm`` engine still pads its arrays
+to the catalogue's M-bucket, exactly as the reference, so results and
+pruning statistics match it field for field. ``bta`` runs on the real M:
+the reference pads its list arrays only so that one compiled executable
+serves every catalogue of a bucket, and its padded results equal the
+unpadded scan's. In place of the reference's trace counters,
+``topk_mips.launches`` and ``gather_scores.launches`` count the CUDA
+kernels' launches, and :attr:`EngineContext.scan_steps` counts the list
+scans' loop iterations.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import threading
@@ -43,11 +54,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.blocked import norm_pruned_topk_batched
+from repro_torch.core.blocked import (blocked_topk_batched,
+                                      blocked_topk_batched_native,
+                                      norm_pruned_topk_batched)
 from repro_torch.core.driver import NEG_INF, pad_topk
 from repro_torch.core.index import TopKIndex, build_index
-from repro_torch.core.layout import build_layout, pad_zero_rows
+from repro_torch.core.layout import (DEFAULT_PREFIX_DEPTH,
+                                     LIST_LAYOUT_MIN_TARGETS, build_layout,
+                                     pad_zero_rows)
 from repro_torch.core.naive import TopKResult, naive_topk
+from repro_torch.core.strategies import sign_bucket
 from repro_torch.kernels.ops import MIPSCatalog
 
 
@@ -168,19 +184,33 @@ class EngineContext:
       targets: ``[M, R]`` catalogue factors (host array or tensor).
       index: optional prebuilt :class:`TopKIndex` (built lazily otherwise).
       block_size: depth/block granularity handed to blocked engines.
+      max_blocks: uniform halting budget in blocks (``-1`` = run to
+        exactness).
+      prefix_depth: ``list_major`` layout prefix rows per dimension.
+        ``None`` (default) is ADAPTIVE — the layout turns on at
+        ``DEFAULT_PREFIX_DEPTH`` once ``M >= LIST_LAYOUT_MIN_TARGETS``
+        and stays off below that; ``0`` disables it; any other value is
+        honoured (clamped to ``M``). See :attr:`resolved_prefix_depth`.
       cost_table: measured-cost table shared with the serving layer.
       device: where the catalogue and every derived array live
         (``None`` = ``cuda``).
+
+    ``scan_steps`` counts the list scans' loop iterations — each one host
+    read — by phase (``"prefix"``, ``"tail"``, ``"gather"``).
     """
 
     def __init__(self, targets, index: Optional[TopKIndex] = None,
-                 block_size: int = 256,
+                 block_size: int = 256, max_blocks: int = -1,
+                 prefix_depth: Optional[int] = None,
                  cost_table: Optional[CostTable] = None, device=None):
         self.device = resolve_device(device)
         self.targets = torch.as_tensor(targets, dtype=torch.float32,
                                        device=self.device).contiguous()
         self.cost_table = cost_table
         self.block_size = block_size
+        self.max_blocks = max_blocks
+        self.prefix_depth = prefix_depth
+        self.scan_steps: collections.Counter = collections.Counter()
         self._index = index
         self._catalog = None
         self._layouts: Dict[str, object] = {}
@@ -200,6 +230,17 @@ class EngineContext:
         return m_bucket(self.num_targets)
 
     @property
+    def resolved_prefix_depth(self) -> int:
+        """The list_major prefix depth this context builds (0 = off):
+        adaptive when ``prefix_depth`` is None (on only from
+        ``LIST_LAYOUT_MIN_TARGETS`` rows), else as given, clamped to M."""
+        if self.prefix_depth is None:
+            if self.num_targets < LIST_LAYOUT_MIN_TARGETS:
+                return 0
+            return int(min(self.num_targets, DEFAULT_PREFIX_DEPTH))
+        return int(min(self.num_targets, self.prefix_depth))
+
+    @property
     def index(self) -> TopKIndex:
         if self._index is None:
             self._index = build_index(self.targets, device=self.device)
@@ -217,8 +258,11 @@ class EngineContext:
         """The named catalogue layout, built lazily and cached."""
         lay = self._layouts.get(name)
         if lay is None:
+            params = {"device": self.device}
+            if name == "list_major":
+                params["prefix_depth"] = self.resolved_prefix_depth
             index = None if name == "row_major" else self.index
-            lay = build_layout(name, self.targets, index, device=self.device)
+            lay = build_layout(name, self.targets, index, **params)
             self._layouts[name] = lay
         return lay
 
@@ -232,18 +276,24 @@ class EngineContext:
         return args
 
     def run_engine(self, engine: "Engine", U, k: int,
-                   budget: Optional[int] = None) -> TopKResult:
+                   budget: Optional[int] = None,
+                   bcfg: Optional[tuple] = None) -> TopKResult:
         """Bucket the batch, pad, run the engine, slice back.
 
         Padding repeats the LAST query row; padded rows are dropped before
-        returning, so per-query statistics are untouched.
+        returning, so per-query statistics are untouched. ``bcfg`` is the
+        batch's ``engine.batch_config``, worked out here when the caller
+        has not already done so.
         """
         U = torch.atleast_2d(torch.as_tensor(U, dtype=torch.float32,
                                              device=self.device))
+        if bcfg is None:
+            bcfg = (engine.batch_config(self, U)
+                    if engine.batch_config is not None else ())
         b = U.shape[0]
         U = pad_to_bucket(U).contiguous()
         res = engine.run_args(self, self.engine_args(engine), U, int(k),
-                              budget)
+                              budget, bcfg)
         if U.shape[0] != b:
             res = TopKResult(*(x[:b] for x in res))
         return res
@@ -281,36 +331,44 @@ class Engine:
 
     ``make_args(ctx, m_bucket)`` prepares the engine's arguments from the
     context once (cached by :meth:`EngineContext.engine_args`);
-    ``run_args(ctx, args, U, k, budget)`` is the batched body over a
-    ``[B, R]`` tensor on the context's device.
+    ``run_args(ctx, args, U, k, budget, bcfg)`` is the batched body over
+    a ``[B, R]`` tensor on the context's device. ``batch_config(ctx, U)``,
+    where set, is the batch's specialisation (the list engines' sign
+    bucket): worked out once per batch and handed to ``run_args`` as
+    ``bcfg`` (``()`` for engines without one); the server also records
+    it per served batch.
     """
 
     name: str
     make_args: Callable[[EngineContext, int], Any]
     run_args: Callable[[EngineContext, Any, torch.Tensor, int,
-                        Optional[int]], TopKResult]
+                        Optional[int], tuple], TopKResult]
     exact: bool = True
     needs_index: bool = True
     #: True for engines that honour ``run(..., budget=)`` — a halting
-    #: budget in norm-order rows, with the halted result carrying a
+    #: budget in rows (norm-order rows; list depth for ``bta``), rounded
+    #: up to whole blocks, with the halted result carrying a
     #: per-item certificate bound (``TopKResult.upper``)
     supports_budget: bool = False
     backend: str = "torch"
     layout: Optional[str] = None
+    batch_config: Optional[Callable[[EngineContext, Any], tuple]] = None
     description: str = ""
 
     def run(self, ctx: EngineContext, U, k: int,
-            budget: Optional[int] = None) -> TopKResult:
+            budget: Optional[int] = None,
+            bcfg: Optional[tuple] = None) -> TopKResult:
         if budget is not None and not self.supports_budget:
             raise ValueError(
                 f"engine {self.name!r} does not support budgeted queries; "
                 "use one of "
                 f"{[e.name for e in list_engines() if e.supports_budget]}")
-        return ctx.run_engine(self, U, k, budget=budget)
+        return ctx.run_engine(self, U, k, budget=budget, bcfg=bcfg)
 
 
 _REGISTRY: Dict[str, Engine] = {}
 _ALIASES: Dict[str, str] = {
+    "blocked": "bta",
     "norm_pruned": "norm",
     "pallas": "topk_mips",
 }
@@ -358,7 +416,7 @@ def _naive_args(ctx: EngineContext, bucket: int):
     return {"targets": ctx.targets, "m_bucket": bucket}
 
 
-def _naive_run(ctx, args, U, k, budget):
+def _naive_run(ctx, args, U, k, budget, bcfg):
     # budget ignored: one matmul scores everything
     T = args["targets"]
     m = T.shape[0]
@@ -394,11 +452,66 @@ def _norm_args(ctx: EngineContext, bucket: int):
     }
 
 
-def _norm_run(ctx, args, U, k, budget):
+def _budget_blocks(ctx: EngineContext, budget: Optional[int]) -> int:
+    """The context's block cap, tightened by a budget in rows (rounded up
+    to whole blocks, at least one)."""
+    max_blocks = ctx.max_blocks
+    if budget is not None:
+        bb = max(1, -(-int(budget) // ctx.block_size))
+        max_blocks = bb if max_blocks < 0 else min(max_blocks, bb)
+    return max_blocks
+
+
+def _list_layout(ctx: EngineContext):
+    """The list_major layout, or None when the context disables it."""
+    return ctx.layout("list_major") if ctx.resolved_prefix_depth > 0 \
+        else None
+
+
+def _list_batch_cfg(ctx: EngineContext, U) -> tuple:
+    """Sign bucket of the query batch; ``()`` with the list layout off
+    (the gather path serves every batch alike)."""
+    if ctx.resolved_prefix_depth <= 0:
+        return ()
+    return sign_bucket(U)
+
+
+def _list_args(ctx: EngineContext, bucket: int):
+    """The list engines' arguments: the catalogue, the sorted-list index
+    and the list layout, all at the real M (``bucket`` only sizes the
+    result's slots, as for ``naive``)."""
+    return {"targets": ctx.targets, "index": ctx.index,
+            "layout": _list_layout(ctx), "m_bucket": bucket}
+
+
+def _bta_run(ctx, args, U, k, budget, bcfg):
+    block_size = ctx.block_size
+    # budget is list-depth rows; BTA halts at block granularity
+    max_blocks = _budget_blocks(ctx, budget)
+    T, idx, lay = args["targets"], args["index"], args["layout"]
+    kk = min(int(k), T.shape[0])
+    if bcfg and lay is not None and lay.serves_sign(bcfg[0]) \
+            and lay.prefix_steps(block_size) > 0:
+        sign, dense = bcfg
+        res = blocked_topk_batched_native(
+            T, idx.order_desc, idx.t_sorted_desc, U, kk,
+            block_size=block_size, max_blocks=max_blocks, layout=lay,
+            sign=sign, dense=dense, steps=ctx.scan_steps)
+    else:
+        # a single-sided layout cannot serve the other sign buckets, and
+        # a prefix shorter than one block none: the gather path
+        res = blocked_topk_batched(T, idx, U, kk, block_size, max_blocks,
+                                   steps=ctx.scan_steps)
+    # k past M: the slots beyond the catalogue hold (-inf, -1), as naive's
+    vals, ids = pad_topk(res.values, res.indices,
+                         min(int(k), args["m_bucket"]))
+    return res._replace(values=vals, indices=ids)
+
+
+def _norm_run(ctx, args, U, k, budget, bcfg):
     block_size = ctx.block_size
     # budget is rows enumerated in norm order, i.e. blocks * block
-    max_blocks = -1 if budget is None else max(1, -(-int(budget)
-                                                    // block_size))
+    max_blocks = _budget_blocks(ctx, budget)
     mb = args["targets_by_norm"].shape[0]
     # tiny catalogues shrink the block to the bucket so the slice fits
     return norm_pruned_topk_batched(
@@ -410,7 +523,7 @@ def _topk_mips_args(ctx: EngineContext, bucket: int):
     return {"catalog": ctx.catalog}
 
 
-def _topk_mips_run(ctx, args, U, k, budget):
+def _topk_mips_run(ctx, args, U, k, budget, bcfg):
     cat = args["catalog"]
     vals, ids, stats = cat.query_batch(U, k)
     # stats = (rows scored incl. block padding, tiles visited, loaded);
@@ -425,6 +538,13 @@ register_engine(Engine(
     exact=True, needs_index=False, supports_budget=True,
     backend="torch", layout="row_major",
     description="full matmul + stable top-k (the oracle)"))
+register_engine(Engine(
+    name="bta", make_args=_list_args, run_args=_bta_run,
+    exact=True, needs_index=True, supports_budget=True,
+    backend="torch", layout="list_major", batch_config=_list_batch_cfg,
+    description="Block Threshold Algorithm: batched sign-specialised "
+                "list-prefix tiles, then a gather tail scored by kernel "
+                "B4 (plain PyTorch on CPU tensors)"))
 register_engine(Engine(
     name="norm", make_args=_norm_args, run_args=_norm_run,
     exact=True, needs_index=True, supports_budget=True,

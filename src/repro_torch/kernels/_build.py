@@ -49,7 +49,7 @@ def find_nvcc() -> str:
                        "the machine with the card (set CUDA_HOME)")
 
 
-def build(name: str = "topk_mips") -> BuildResult:
+def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless a library of the same source hash
     is already in :data:`BUILD_DIR`."""
     src = CSRC / f"{name}.cu"
@@ -74,14 +74,28 @@ def build(name: str = "topk_mips") -> BuildResult:
     return BuildResult(lib, log, seconds)
 
 
+#: Each library's C entry points: name -> (argument types, return type).
+#: Pointers and the stream are ``c_void_p`` (ctypes would cut a bare int
+#: to 32 bits); every launch function returns ``cudaGetLastError()``.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "topk_mips": {
+        "topk_mips_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+        "topk_mips_error_string": ([_I], ctypes.c_char_p),
+    },
+    "gather_scores": {
+        "gather_scores_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "gather_scores_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def load_topk_mips() -> ctypes.CDLL:
-    """The ``topk_mips`` library, built if needed, with its C signatures."""
-    lib = ctypes.CDLL(str(build("topk_mips").path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topk_mips_launch.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, p]
-    lib.topk_mips_launch.restype = ctypes.c_int
-    lib.topk_mips_error_string.argtypes = [i]
-    lib.topk_mips_error_string.restype = ctypes.c_char_p
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` (built if needed), with
+    the C signatures of :data:`SIGNATURES` set."""
+    lib = ctypes.CDLL(str(build(name).path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib

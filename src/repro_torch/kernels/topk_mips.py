@@ -150,8 +150,8 @@ def topk_mips(T_sorted: torch.Tensor, U: torch.Tensor,
     stats = torch.empty((B, 3), dtype=torch.int32, device=dev)
     if B == 0:
         return vals, idx, stats
-    from repro_torch.kernels._build import load_topk_mips
-    lib = load_topk_mips()
+    from repro_torch.kernels._build import load
+    lib = load("topk_mips")
     num_real = M_pad if num_real < 0 else num_real
     with torch.cuda.device(dev):
         err = lib.topk_mips_launch(

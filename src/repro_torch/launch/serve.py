@@ -23,7 +23,7 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("-n", "--num-queries", type=int, default=100)
     ap.add_argument("--batch", type=int, default=25)
-    ap.add_argument("--engine", default="topk_mips",
+    ap.add_argument("--engine", default="bta",
                     help="registry engine name/alias, or 'all' to sweep "
                          "every exact engine")
     ap.add_argument("--distribution", default="lowrank_spectrum",

@@ -3,7 +3,8 @@
 ``TopKServer`` owns a SEP-LR catalogue plus a shared
 :class:`repro_torch.core.engines.EngineContext` on a device and serves
 batched queries through any engine of the registry, addressed by name
-(``naive`` / ``norm`` / ``topk_mips``, alias ``pallas``). Requests are
+(``bta`` — the default, alias ``blocked`` — ``naive``, ``norm``,
+``topk_mips``, alias ``pallas``). Requests are
 chunked by ``max_batch``; per-query pruning statistics (scores computed,
 depth) and latencies are aggregated per engine in :class:`ServeStats`.
 
@@ -31,6 +32,7 @@ from repro_torch.core.engines import (CostTable, EngineContext,
                                       batch_bucket, engine_names, get_engine)
 from repro_torch.core.naive import TopKResult
 from repro_torch.core.seplr import SepLRModel
+from repro_torch.core.strategies import sign_bucket_label
 
 #: Ring length for per-batch latency percentiles: enough batches for a
 #: stable p99, bounded so a long-lived server never grows its stats.
@@ -56,8 +58,8 @@ class ServeStats:
     are percentiles over a bounded ring of per-batch per-query latencies,
     and ``req_p50_us``/... over a ring of per-REQUEST latencies (one
     :meth:`TopKServer.query` call, all its chunks). ``sign_batches``
-    counts served batches per sign bucket (empty until the list engines
-    are ported). Counter updates take a lock.
+    counts served batches per sign bucket (the list engines' batch
+    specialisation). Counter updates take a lock.
     """
 
     n_queries: int = 0
@@ -187,10 +189,10 @@ class TopKServer:
         raise NotImplementedError(f"update_targets comes with {_STREAMING}")
 
     def _record(self, method: str, res: TopKResult, dt: float,
-                n: int) -> None:
+                n: int, sign_label: str = "") -> None:
         s = self.stats.setdefault(method, ServeStats())
         s.record_batch(n, int(np.sum(res.n_scored)),
-                       int(np.sum(res.depth)), dt)
+                       int(np.sum(res.depth)), dt, sign_label)
 
     def query(self, U, k: int, method: str = "bta",
               budget: Optional[int] = None,
@@ -242,12 +244,19 @@ class TopKServer:
         for i in range(0, U_all.shape[0], self.max_batch):
             chunk = U_all[i: i + self.max_batch]
             n = chunk.shape[0]
+            # the chunk's sign bucket (engines with a batch specialisation
+            # only): worked out once, for the run and the per-bucket stats
             t0 = time.perf_counter()
-            res = _to_host(engine.run(self.ctx, chunk, k, budget=budget))
+            bcfg = (engine.batch_config(self.ctx, chunk)
+                    if engine.batch_config is not None else ())
+            label = sign_bucket_label(bcfg) if engine.batch_config else ""
+            res = _to_host(engine.run(self.ctx, chunk, k, budget=budget,
+                                      bcfg=bcfg))
             dt = time.perf_counter() - t0
             key = engine.name if budget is None else f"{engine.name}@budget"
-            self.cost_table.observe(key, batch_bucket(n), "", dt / max(n, 1))
-            self._record(engine.name, res, dt, n)
+            self.cost_table.observe(key, batch_bucket(n), label,
+                                    dt / max(n, 1))
+            self._record(engine.name, res, dt, n, label)
             outs.append(res)
         req_stats.record_request_latency(1e6 * (time.perf_counter() - t_admit))
         return TopKResult(*(np.concatenate(xs, axis=0) for xs in zip(*outs)))

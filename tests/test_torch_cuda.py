@@ -1,21 +1,34 @@
-"""The ``topk_mips`` CUDA kernel against its plain PyTorch version, on the
-card. These tests need a CUDA device (the kernel has no CPU mode) and skip
-with a reason where there is none; the file imports no jax, so it also
-runs where only PyTorch is installed:
+"""The ``topk_mips`` and ``gather_scores`` CUDA kernels against their plain
+PyTorch versions, on the card. These tests need a CUDA device (the kernels
+have no CPU mode) and skip with a reason where there is none; the file
+imports no jax, so it also runs where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-Agreement: values within 1e-5 relative (the kernel sums each row in lane
-order, the plain version in cuBLAS's), ids equal wherever scores are
-distinct, stats equal exactly."""
+Agreement: ``topk_mips`` values within 1e-5 relative (the kernel sums
+each row in lane order, the plain version in cuBLAS's), ids equal
+wherever scores are distinct, stats equal exactly. ``gather_scores``
+scores every candidate, near-zero sums included, so it is held, as in
+``chip_smoke.py``, to 1e-5 relative plus 1e-4 absolute: two fp32
+summation orders over R <= 200 products of magnitude ~1 differ by a few
+ulps of the largest partial sum (about 2e-6 measured at R = 100)."""
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.gather_scores import (gather_scores,
+                                               gather_scores_plain)
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.kernels.topk_mips import MODES, topk_mips, topk_mips_plain
 
 from _torch_parity import assert_topk_equal
+
+B4_RTOL, B4_ATOL = 1e-5, 1e-4
+
+
+def _assert_b4(got, want):
+    torch.testing.assert_close(got, want, rtol=B4_RTOL, atol=B4_ATOL,
+                               equal_nan=True)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +75,58 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
                      .contiguous().t()})
     with pytest.raises(ValueError, match="one device"):
         topk_mips(**{**args, "U": args["U"].cpu()})
+
+
+@pytest.mark.parametrize("m,r,b,c", [
+    (5000, 100, 8, 2560),   # the list tail's shape at R = 100, few lanes
+    (3000, 50, 3, 1000),    # R = 50: rows not 16-byte aligned
+    (700, 17, 1, 45),       # C not a multiple of the 32 rows of a block
+    (100, 200, 2, 9),       # R past one 128-column pass
+])
+def test_gather_scores_kernel_matches_plain_version(m, r, b, c):
+    _need_card()
+    rng = np.random.default_rng(m + r)
+    T = torch.from_numpy(rng.standard_normal((m, r)).astype(np.float32))
+    U = torch.from_numpy(rng.standard_normal((b, r)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, m, (b, c)).astype(np.int32))
+    ids[:, :2] = 0                       # repeats within and across lanes
+    T, U, ids = T.cuda(), U.cuda(), ids.cuda()
+    before = gather_scores.launches
+    got = gather_scores(T, ids, U)
+    torch.cuda.synchronize()
+    _assert_b4(got, gather_scores_plain(T, ids, U))
+    one = gather_scores(T, ids[0].contiguous(), U[0].contiguous())
+    torch.cuda.synchronize()
+    _assert_b4(one, gather_scores_plain(T, ids[0], U[0]))
+    assert gather_scores.launches == before + 2
+
+
+def test_gather_scores_kernel_scores_out_of_range_ids_nan():
+    _need_card()
+    T = torch.randn((40, 9), device="cuda")
+    u = torch.randn((9,), device="cuda")
+    ids = torch.tensor([3, -1, 40, 2 ** 31 - 1, 39], dtype=torch.int32,
+                       device="cuda")
+    out = gather_scores(T, ids, u)
+    assert torch.isnan(out[[1, 2, 3]]).all()
+    _assert_b4(out[[0, 4]], T[[3, 39]] @ u)
+
+
+def test_gather_scores_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    T = torch.randn((64, 8), device="cuda")
+    U = torch.randn((2, 8), device="cuda")
+    ids = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        gather_scores(T.double(), ids, U)
+    with pytest.raises(ValueError, match="int32"):
+        gather_scores(T, ids.long(), U)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_scores(T, torch.zeros((5, 2), dtype=torch.int32,
+                                     device="cuda").t(), U)
+    with pytest.raises(ValueError, match="one device"):
+        gather_scores(T, ids, U.cpu())
+    with pytest.raises(ValueError, match="kernel limits"):
+        gather_scores(torch.zeros((4, 5000), device="cuda"),
+                      torch.zeros(2, dtype=torch.int32, device="cuda"),
+                      torch.zeros(5000, device="cuda"))

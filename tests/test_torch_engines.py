@@ -39,7 +39,8 @@ from repro_torch.serving.server import (ServeStats, TopKServer,
 from _torch_parity import assert_topk_equal, host
 
 ROOT = Path(__file__).resolve().parents[1]
-REF_NAME = {"naive": "naive", "norm": "norm", "topk_mips": "pallas"}
+REF_NAME = {"naive": "naive", "norm": "norm", "topk_mips": "pallas",
+            "bta": "bta"}
 
 
 def _norm_arrays(T: np.ndarray, bucket: int):
@@ -110,17 +111,20 @@ def test_merge_topk_sorted_carry_wins_ties():
 
 
 def test_registry_names_and_aliases():
-    assert engine_names() == ["naive", "norm", "topk_mips"]
+    assert engine_names() == ["bta", "naive", "norm", "topk_mips"]
     assert get_engine("pallas").name == "topk_mips"
     assert get_engine("norm_pruned").name == "norm"
+    assert get_engine("blocked").name == "bta"
+    assert get_engine("bta").layout == "list_major"
     assert [e.name for e in list_engines(backend="cuda")] == ["topk_mips"]
     assert [e.name for e in list_engines(needs_index=False)] == ["naive"]
     assert {e.name for e in list_engines() if e.supports_budget} == {
-        "naive", "norm"}
-    for name in ("bta", "ta", "auto", "norm_sharded", "fagin", "partial",
-                 "threshold", "blocked"):
-        with pytest.raises(ValueError, match=r"registered: \['naive', "
-                                             r"'norm', 'topk_mips'\]"):
+        "bta", "naive", "norm"}
+    for name in ("ta", "auto", "norm_sharded", "fagin", "partial",
+                 "threshold"):
+        with pytest.raises(ValueError, match=r"registered: \['bta', "
+                                             r"'naive', 'norm', "
+                                             r"'topk_mips'\]"):
             get_engine(name)
 
 
@@ -135,7 +139,7 @@ def test_engines_run_on_a_carried_index():
                           for f in INDEX_FIELDS}, device="cpu")
     ctx = EngineContext(T, index=idx, block_size=64, device="cpu")
     assert ctx.layout("norm_major").targets_by_norm is idx.targets_by_norm
-    for name in ("naive", "norm", "pallas"):
+    for name in ("naive", "norm", "pallas", "bta"):
         _assert_result(get_engine(name).run(ctx, U, 5),
                        ref_get_engine(name).run(ref_ctx, jnp.asarray(U), 5))
 
@@ -161,7 +165,7 @@ def servers():
             TopKServer(model, max_batch=16, block_size=64, device="cpu"), U)
 
 
-@pytest.mark.parametrize("method", ["naive", "norm", "topk_mips"])
+@pytest.mark.parametrize("method", ["naive", "norm", "topk_mips", "bta"])
 def test_server_matches_reference_server(servers, method):
     """40 queries through max_batch=16: three chunks, the last partial."""
     ref, srv, U = servers
@@ -172,6 +176,7 @@ def test_server_matches_reference_server(servers, method):
     a, b = srv.stats[method], ref.stats[REF_NAME[method]]
     assert (a.n_queries, a.n_scored, a.depth_sum) == (
         b.n_queries, b.n_scored, b.depth_sum)
+    assert a.sign_batches == b.sign_batches
     assert len(a.lat_us_ring) == 3 and a.us_per_query > 0
 
 
@@ -188,8 +193,8 @@ def test_server_alias_and_budget_match_reference(servers):
 
 def test_server_validation_and_later_slices(servers):
     _, srv, U = servers
-    with pytest.raises(ValueError, match="unknown engine 'bta'"):
-        srv.query(U, 5)                       # the reference's default
+    with pytest.raises(ValueError, match="unknown engine 'ta'"):
+        srv.query(U, 5, method="ta")          # the next slice
     with pytest.raises(ValueError, match="k must be"):
         srv.query(U, 0, method="naive")
     with pytest.raises(ValueError, match="budget must be"):
@@ -219,7 +224,7 @@ def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):
     srv = TopKServer(model, max_batch=8, block_size=64, device="cpu")
     before = topk_mips.launches
     srv.warmup(5, batch_sizes=(1, 8))
-    assert srv.available_engines() == ["naive", "norm", "topk_mips"]
+    assert srv.available_engines() == ["bta", "naive", "norm", "topk_mips"]
     for name in srv.available_engines():
         assert srv.cost_table.predict(name, 8, "", granular_only=True) > 0
     assert topk_mips.launches == before       # CPU tensors: plain version
@@ -256,5 +261,5 @@ def test_serve_cli_sweeps_every_engine_on_cpu():
          "--batch", "16", "--k", "5"],
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    for name in ("naive", "norm", "topk_mips"):
+    for name in ("bta", "naive", "norm", "topk_mips"):
         assert f"{name}:" in out.stdout
