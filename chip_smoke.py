@@ -7,9 +7,10 @@ checkout. In order, it
 
 1. checks for the card and prints its name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
-2. builds the ``topk_mips`` and ``gather_scores`` CUDA kernels (one
-   ``nvcc`` each, started together) and prints nvcc's ``-Xptxas -v``
-   register and shared-memory reports;
+2. builds the four CUDA kernel libraries (``topk_mips``,
+   ``gather_scores``, ``embedding_bag``, ``fm_interaction``; one ``nvcc``
+   each, started together) and prints nvcc's ``-Xptxas -v`` register and
+   shared-memory reports;
 3. holds each of ``topk_mips``' three modes against its plain PyTorch
    version on the card, at the main-path shapes (the LSHTC-like
    325,056 x 100 catalogue, B = 64, k = 10, block_m 256, superblock 8),
@@ -37,7 +38,21 @@ checkout. In order, it
    LSHTC-like run, and that the same engine on the CPU (the kernels'
    plain versions) gives the first 4 LSHTC-like queries the same values,
    ids, ``n_scored`` and ``depth``;
-7. prints one ``{"kernels": [...]}`` line and, last, the device line
+7. the recsys serving path at DeepFM's full published width (39 fields,
+   embed 10, 1,000,000 ids a field, MLP 400-400-400; random weights from
+   a seeded generator on the card): holds ``embedding_bag`` (kernel B5;
+   sum and mean, float32 and float16, d = 10 and d = 1) and
+   ``fm_interaction`` (kernel B6; float32 and float16) against their
+   plain versions at the ``serve_p99`` (512) and ``serve_bulk`` (262,144)
+   batches, and times them (B5 once for each of its two calls on the
+   path: forward's first-order sum at d = 1, the query tower's mean at
+   d = 10); serves ``forward`` on both batch sizes with
+   the counters set to 0 just before and read just after, and checks the
+   first 64 logits against the same ``forward`` on the CPU; then runs the
+   query tower (B5) for 64 queries, exact top-100 retrieval of 1,000,000
+   candidates through ``TopKServer`` (``bta`` against ``naive``) and
+   ``TwoStageRanker``'s full-model re-rank to the top 5, counted;
+8. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -45,6 +60,7 @@ Any failed phase exits non-zero without the device line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -70,15 +86,36 @@ REPLACES = {
     "two_level_tile": "src/repro/kernels/topk_mips.py:299",
     "single_level": "src/repro/kernels/topk_mips.py:135",
     "gather_scores": "src/repro/kernels/topk_mips.py:457",
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:47",
+    "fm_interaction": "src/repro/kernels/fm_interaction.py:26",
 }
 # the entry point of the topk_mips path that runs each mode
 MODE_OF = {"topk_mips": "two_level_batched", "query": "two_level_tile",
            "prescreen_off": "single_level"}
-KERNELS = ("topk_mips", "gather_scores")
+KERNELS = ("topk_mips", "gather_scores", "embedding_bag", "fm_interaction")
 N_CPU_CHECK = 4
 # Scores from two fp32 summation orders over R <= 100 products differ by a
 # few ulps of the largest partial sums: 1e-5 relative plus 1e-4 absolute.
 RTOL, ATOL = 1e-5, 1e-4
+# The recsys path: DeepFM's published config, its serve cells' batch sizes
+# (configs/base.py RECSYS_SHAPES), and the retrieval cell's catalogue.
+RECSYS_ARCH = "deepfm"
+SERVE_P99_BATCHES = 8
+SERVE_BULK_BATCHES = 2
+N_RECSYS_CPU_CHECK = 64
+N_RETRIEVAL_QUERIES = 64
+RETRIEVE_N = 100
+RERANK_K = 5
+# float16 outputs of B5 and B6 are rounded once from fp32 sums on both
+# sides, so they may differ by one float16 ulp (at most 2**-10 relative):
+# 2e-3 relative, plus 1e-3 of the case's largest value for outputs that
+# cancel to near zero. A wrong scale or an output of zeros fails.
+F16_RTOL, F16_ATOL_OF_MAX = 2e-3, 1e-3
+# the two B5 calls on the recsys path, as rows of the kernels line: the
+# first-order term of forward (sum over the linear weights as a [V, 1]
+# table) and the query tower (mean over the embedding table)
+B5_CALLS = {"embedding_bag[sum,d=1]": ("linear d=1", "sum"),
+            "embedding_bag[mean,d=10]": ("embed d=10", "mean")}
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -99,6 +136,13 @@ def gpu_name_and_power() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -195,13 +239,11 @@ def compare_modes(cat, U, k, label, timing: bool):
                           + args["tile_bounds"].numel() + U.shape[0]
                           + 2 * kv.numel() + ks.numel())
             flops = 2.0 * float(ks[:, 0].double().sum()) * R
-            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-            t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+            bound_ms, bound_by = bound(nbytes, flops)
             rec.update(
                 ms=timed_ms(lambda: topk_mips(**args), 10),
                 plain_ms=timed_ms(lambda: topk_mips_plain(**args), 2),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
         out[mode] = rec
         print(f"  {label:>18s} {mode:>17s}: max_abs_err={err:.3g} "
@@ -254,8 +296,7 @@ def compare_gather(cases):
             R = T.shape[1]
             nbytes = 4 * (rec["distinct_ids"] * R + 2 * B * C + B * R)
             flops = 2.0 * B * C * R
-            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-            t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+            bound_ms, bound_by = bound(nbytes, flops)
             ids64 = ids.long()
             rec.update(
                 ms=timed_ms_cold(lambda: gather_scores(T, ids, U), 20),
@@ -264,8 +305,7 @@ def compare_gather(cases):
                     lambda: gather_scores_plain(T, ids, U), 2),
                 library_ms=timed_ms_cold(
                     lambda: torch.bmm(T[ids64], U[:, :, None]), 10),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
         out[label] = rec
         print(f"  gather_scores {label:>24s} ids {rec['shape']} "
@@ -277,17 +317,19 @@ def compare_gather(cases):
     return out
 
 
-def profile_chunk(srv, U) -> None:
-    """Device time by kernel over one served chunk (``torch.profiler``),
-    and the device's busy share of the chunk's wall time. Measurement
-    only: a profiler that records no device time says so."""
+def profile_call(label: str, fn, kernels: dict) -> None:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``),
+    the device's busy share of the call's wall time, and the launches and
+    share of each kernel in ``kernels`` (printed name -> a substring of
+    its CUDA kernel's name). Measurement only: a profiler that records no
+    device time says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.query(U, K)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # kernels only: an operator's row repeats its kernels' device time
@@ -298,17 +340,17 @@ def profile_chunk(srv, U) -> None:
     if not events:
         print("  profile: the profiler recorded no device time", flush=True)
         return
-    print(f"  profile of one {U.shape[0]}-query chunk: wall {wall_us:.0f} us, "
+    print(f"  profile of {label}: wall {wall_us:.0f} us, "
           f"device busy {busy_us:.0f} us ({busy_us / wall_us:.1%})",
           flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total:10.0f} us {e.count:6d} x "
               f"{e.key[:90]}", flush=True)
-    b4 = [e for e in events if "gather_scores_kernel" in e.key]
-    b4_us = sum(e.self_device_time_total for e in b4)
-    print(f"  profile: B4 gather_scores_kernel {sum(e.count for e in b4)} "
-          f"launches, {b4_us:.0f} us = {b4_us / wall_us:.2%} of the chunk's "
-          f"wall", flush=True)
+    for name, key in kernels.items():
+        mine = [e for e in events if key in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        print(f"  profile: {name} {sum(e.count for e in mine)} launches, "
+              f"{us:.0f} us = {us / wall_us:.2%} of the wall", flush=True)
 
 
 def edge_cases(rng, device):
@@ -335,6 +377,355 @@ def edge_cases(rng, device):
         check(np.allclose(vals.cpu().numpy(), ref, rtol=RTOL, atol=ATOL),
               f"{label}: kernel values differ from the float64 reference")
     return out
+
+
+def tree_to(tree, dev):
+    """A nested dict/list of tensors, copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {key: tree_to(v, dev) for key, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def recsys_batches_on(dev, cfg, batch: int, n: int):
+    """The first ``n`` click-log batches of ``batch`` rows from SEED, made
+    with numpy and moved to ``dev`` (set-up, outside every timing)."""
+    import torch
+    from repro_torch.data.synthetic import recsys_batches
+    gen = recsys_batches(SEED, cfg.n_dense, cfg.n_sparse,
+                         cfg.vocab_per_field, batch)
+    return [{key: torch.from_numpy(b[key]).to(dev)
+             for key in ("dense", "sparse")}
+            for b in itertools.islice(gen, n)]
+
+
+def table_ids(cfg, batch):
+    """A batch's ids as rows of the one logical table (field offsets
+    added): the kernels' ``[B, F]`` int32 operand."""
+    import torch
+    offsets = torch.arange(cfg.n_sparse, dtype=torch.int32,
+                           device=batch["sparse"].device) \
+        * cfg.vocab_per_field
+    return (batch["sparse"] + offsets[None, :]).contiguous()
+
+
+def compare_recsys_kernels(params, ids_by_cell):
+    """B5 (sum and mean over the embedding table, d = 10, and over the
+    linear weights as a [V, 1] table, d = 1) and B6 (over the gathered
+    field embeddings) against their plain versions, float32 and float16,
+    at each cell's ids; then times both kernels, B5 in each of its two
+    calls on the path (``B5_CALLS``), in float32 from a cold L2, with
+    their plain versions at ``serve_bulk`` and, for B5,
+    ``torch.nn.functional.embedding_bag``. Returns the ``serve_bulk``
+    records of the three rows, keyed by row name."""
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    from repro_torch.kernels.fm_interaction import (fm_interaction,
+                                                    fm_interaction_plain)
+    from repro_torch.models.embedding import embedding_lookup
+    tables = {"embed d=10": params["embed"],
+              "linear d=1": params["linear"][:, None]}
+    err = {"embedding_bag": {}, "fm_interaction": {}}
+
+    def held(name, label, got, want, dtype):
+        check(got.shape == want.shape and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}/{label}: not finite of the plain version's shape")
+        if dtype == torch.float32:
+            rtol, atol = RTOL, ATOL
+        else:
+            rtol = F16_RTOL
+            atol = F16_ATOL_OF_MAX * float(want.float().abs().max())
+        e = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"{name}/{label}: differs from the plain version "
+              f"(max abs err {e})")
+        err[name][label] = e
+        print(f"  {name} {label}: max_abs_err={e:.3g}", flush=True)
+
+    for cell, ids in ids_by_cell.items():
+        for dtype in (torch.float32, torch.float16):
+            short = "f32" if dtype == torch.float32 else "f16"
+            for tname, table in tables.items():
+                t = table.to(dtype)
+                for mode in ("sum", "mean"):
+                    got = embedding_bag(t, ids, mode)
+                    torch.cuda.synchronize()
+                    held("embedding_bag", f"{cell} {tname} {mode} {short}",
+                         got, embedding_bag_plain(t, ids, mode), dtype)
+            emb = embedding_lookup(params["embed"], ids).to(dtype)
+            got = fm_interaction(emb)
+            torch.cuda.synchronize()
+            held("fm_interaction", f"{cell} {tuple(emb.shape)} {short}", got,
+                 fm_interaction_plain(emb), dtype)
+            del emb
+
+    recs = {}
+    for cell, ids in ids_by_cell.items():
+        B, F = ids.shape
+        bulk = cell == "serve_bulk"
+        distinct = int(torch.unique(ids).numel())
+        for row, (tname, mode) in B5_CALLS.items():
+            T = tables[tname]
+            d = T.shape[1]
+            rec = {"cell": cell, "distinct_rows": distinct,
+                   "ms": timed_ms_cold(
+                       lambda: embedding_bag(T, ids, mode), 20),
+                   "library_ms": timed_ms_cold(
+                       lambda: tnf.embedding_bag(ids, T, mode=mode), 20)}
+            rec["bound_ms"], rec["bound_by"] = bound(
+                4 * (B * F + distinct * d + B * d), B * F * d)
+            if bulk:
+                rec["plain_ms"] = timed_ms_cold(
+                    lambda: embedding_bag_plain(T, ids, mode), 3)
+            recs.setdefault(row, {})[cell] = rec
+        emb = embedding_lookup(params["embed"], ids)
+        b6 = {"cell": cell,
+              "ms": timed_ms_cold(lambda: fm_interaction(emb), 20),
+              "library_ms": None}
+        b6["bound_ms"], b6["bound_by"] = bound(4 * (emb.numel() + B),
+                                               3 * emb.numel())
+        if bulk:
+            b6["plain_ms"] = timed_ms_cold(
+                lambda: fm_interaction_plain(emb), 3)
+        del emb
+        recs.setdefault("fm_interaction", {})[cell] = b6
+        for row, by_cell in recs.items():
+            rec = by_cell[cell]
+            print(f"  {row} {cell} f32: " + " ".join(
+                f"{key}={rec[key]:.4g}" for key in
+                ("ms", "plain_ms", "library_ms", "bound_ms", "distinct_rows")
+                if rec.get(key) is not None) + f" ({rec['bound_by']})",
+                flush=True)
+
+    def worst(name, short, part=""):
+        return max(e for label, e in err[name].items()
+                   if label.endswith(short) and part in label)
+
+    f32 = {row: worst("embedding_bag", "f32", f" {tname} {mode} ")
+           for row, (tname, mode) in B5_CALLS.items()}
+    f32["fm_interaction"] = worst("fm_interaction", "f32")
+    f16 = {name: worst(name, "f16") for name in err}
+    print(f"  max_abs_err float32 {f32}, float16 {f16}", flush=True)
+    return {row: {**recs[row]["serve_bulk"], "max_abs_err": f32[row]}
+            for row in recs}
+
+
+def recsys_path(dev):
+    """Step 7 of the module docstring. Returns the kernels line's rows of
+    B5 (one for each of its two calls on the path) and B6."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.seplr import SepLRModel
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.fm_interaction import fm_interaction
+    from repro_torch.models import recsys
+    from repro_torch.serving.server import TopKServer, TwoStageRanker
+
+    spec = get_arch(RECSYS_ARCH)
+    cfg = spec.make_config()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = recsys.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.param_count():,} parameters (embed "
+          f"{tuple(params['embed'].shape)}) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    p99 = recsys_batches_on(dev, cfg, spec.shape("serve_p99").dims["batch"],
+                            SERVE_P99_BATCHES)
+    bulk = recsys_batches_on(dev, cfg,
+                             spec.shape("serve_bulk").dims["batch"],
+                             SERVE_BULK_BATCHES)
+    print(f"recsys batches made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- kernels B5 and B6 against their plain versions -----------------------
+    rows = compare_recsys_kernels(
+        params, {"serve_p99": table_ids(cfg, p99[0]),
+                 "serve_bulk": table_ids(cfg, bulk[0])})
+
+    # -- serve: forward at serve_p99 and serve_bulk, counted ------------------
+    recsys.forward(params, p99[-1], cfg)          # warm-up (cuBLAS, libraries)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    embedding_bag.launches = fm_interaction.launches = 0
+    lat, logits = {"serve_p99": [], "serve_bulk": []}, {}
+    for cell, batches in (("serve_p99", p99), ("serve_bulk", bulk)):
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            out = recsys.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            lat[cell].append(1e6 * (time.perf_counter() - t0))
+            logits[cell, i] = out
+    serve_launches = {"embedding_bag": embedding_bag.launches,
+                      "fm_interaction": fm_interaction.launches}
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(all(serve_launches.values()),
+          f"the recsys serve path launched a kernel 0 times: "
+          f"{serve_launches}")
+    for (cell, i), out in logits.items():
+        n = (p99 if cell == "serve_p99" else bulk)[i]["sparse"].shape[0]
+        check(out.shape == (n,) and bool(torch.isfinite(out).all()),
+              f"{cell} batch {i}: logits not finite of shape [{n}]")
+    for cell, us in lat.items():
+        print(f"  {cell} forward: {len(us)} batches, us per batch "
+              f"p50 {np.median(us):.1f} mean {np.mean(us):.1f} "
+              f"({', '.join(f'{u:.1f}' for u in us)})", flush=True)
+    print(f"serve path: launches {serve_launches}; peak device memory "
+          f"{serve_peak / 2**20:.1f} MiB", flush=True)
+
+    t0 = time.perf_counter()
+    n = N_RECSYS_CPU_CHECK
+    cpu_logits = recsys.forward(tree_to(params, "cpu"),
+                                tree_to({key: v[:n] for key, v in
+                                         p99[0].items()}, "cpu"), cfg)
+    card = logits["serve_p99", 0][:n].cpu()
+    err = float((cpu_logits - card).abs().max())
+    check(torch.allclose(card, cpu_logits, rtol=RTOL, atol=ATOL),
+          f"{cfg.name}: logits on the card differ from the CPU's "
+          f"(max abs err {err})")
+    print(f"forward on the CPU, first {n} serve_p99 examples: max abs err "
+          f"{err:.3g} against the card ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # -- retrieve and re-rank, counted ----------------------------------------
+    M = spec.shape("retrieval_cand").dims["n_candidates"]
+    rng = np.random.default_rng(SEED)
+    cand = (rng.standard_normal((M, cfg.embed_dim)).astype(np.float32)
+            * (1.0 / np.sqrt(1.0 + rng.random(M)))[:, None]
+            ).astype(np.float32)
+    t0 = time.perf_counter()
+    server = TopKServer(SepLRModel(cand, name="items", device=dev),
+                        max_batch=N_RETRIEVAL_QUERIES, device=dev).warmup(
+        RETRIEVE_N, engines=["bta", "naive"])
+    torch.cuda.synchronize()
+    print(f"retrieval catalogue: M={M} R={cfg.embed_dim} built and warmed "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    q_host = next(recsys_batches(SEED + 7, cfg.n_dense, cfg.n_sparse,
+                                 cfg.vocab_per_field, N_RETRIEVAL_QUERIES))
+    queries = {key: torch.from_numpy(q_host[key]).to(dev)
+               for key in ("dense", "sparse")}
+    rerank_s = []
+
+    def rerank(query_batch, cand_ids):
+        # the full DeepFM forward on every (query, candidate) pair, the
+        # candidate's id in the last sparse field
+        t = time.perf_counter()
+        B, N = cand_ids.shape
+        sparse = query_batch["sparse"].repeat_interleave(N, dim=0)
+        ids = torch.from_numpy(cand_ids).to(dev).reshape(-1)
+        sparse[:, -1] = (ids % cfg.vocab_per_field).to(torch.int32)
+        pairs = {"dense": query_batch["dense"].repeat_interleave(N, dim=0),
+                 "sparse": sparse}
+        out = recsys.forward(params, pairs, cfg).reshape(B, N).cpu().numpy()
+        rerank_s.append(time.perf_counter() - t)
+        return out
+
+    ranker = TwoStageRanker(server, rerank, retrieve_n=RETRIEVE_N)
+    torch.cuda.synchronize()
+    embedding_bag.launches = fm_interaction.launches = 0
+    t0 = time.perf_counter()
+    U = recsys.query_tower(params, queries, cfg)
+    torch.cuda.synchronize()
+    tower_us = 1e6 * (time.perf_counter() - t0)
+    tower_launches = embedding_bag.launches
+    res, dt = {}, {}
+    for method in ("bta", "naive"):
+        t0 = time.perf_counter()
+        res[method] = server.query(U, RETRIEVE_N, method=method)
+        dt[method] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top_ids, top_scores = ranker.rank(queries, U, k=RERANK_K)
+    rank_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    retrieve_launches = {"embedding_bag": embedding_bag.launches,
+                         "fm_interaction": fm_interaction.launches}
+    check(tower_launches > 0,
+          "the query tower launched embedding_bag 0 times")
+    check(retrieve_launches["embedding_bag"] > tower_launches,
+          "the re-rank's forward launched embedding_bag 0 times")
+    check(all(retrieve_launches.values()),
+          f"retrieve and re-rank launched a kernel 0 times: "
+          f"{retrieve_launches}")
+
+    check(U.shape == (N_RETRIEVAL_QUERIES, cfg.embed_dim)
+          and bool(torch.isfinite(U).all()),
+          "query tower output not finite of shape [64, 10]")
+    bta, naive = res["bta"], res["naive"]
+    check(naive.values.shape == (N_RETRIEVAL_QUERIES, RETRIEVE_N)
+          and np.isfinite(naive.values).all(),
+          "naive retrieval values not finite of shape [64, 100]")
+    check(np.allclose(bta.values, naive.values, rtol=RTOL, atol=ATOL)
+          and ids_agree(torch.from_numpy(naive.values),
+                        torch.from_numpy(naive.indices),
+                        torch.from_numpy(bta.values),
+                        torch.from_numpy(bta.indices)),
+          "bta retrieval differs from naive")
+    exact = np.sort(U[:8].double().cpu().numpy() @ cand.astype(np.float64).T,
+                    axis=1)[:, ::-1][:, :RETRIEVE_N]
+    check(np.allclose(naive.values[:8], exact, rtol=RTOL, atol=ATOL),
+          "naive retrieval differs from the float64 host reference")
+    check(top_ids.shape == (N_RETRIEVAL_QUERIES, RERANK_K)
+          and np.isfinite(top_scores).all()
+          and (np.diff(top_scores, axis=1) <= 0).all(),
+          "re-ranked top-5 not finite, sorted, of shape [64, 5]")
+    check(all(set(top_ids[b]) <= set(bta.indices[b])
+              for b in range(N_RETRIEVAL_QUERIES)),
+          "a re-ranked id is not among the retrieved candidates")
+    again = rerank(queries, top_ids)
+    check(np.allclose(again, top_scores, rtol=RTOL, atol=ATOL),
+          "re-rank scores differ from the forward of the chosen pairs")
+    t0 = time.perf_counter()
+    rerank(queries, bta.indices)
+    rerank_warm_ms = 1e3 * (time.perf_counter() - t0)
+    share = float(bta.n_scored.mean()) / M
+    for method in ("bta", "naive"):
+        print(f"  retrieval_cand {method}: "
+              f"{1e6 * dt[method] / N_RETRIEVAL_QUERIES:.1f} us/query "
+              f"(one {N_RETRIEVAL_QUERIES}-query batch), scored share "
+              f"{float(res[method].n_scored.mean()) / M:.4%} of M, depth "
+              f"mean {float(res[method].depth.mean()):.1f}", flush=True)
+    print(f"  query tower: {tower_us:.1f} us for {N_RETRIEVAL_QUERIES} "
+          f"queries; TwoStageRanker.rank {1e3 * rank_s:.1f} ms, of it the "
+          f"re-rank of {N_RETRIEVAL_QUERIES} x {RETRIEVE_N} pairs "
+          f"{1e3 * rerank_s[0]:.1f} ms (the first forward at that shape; "
+          f"again on the same pairs {rerank_warm_ms:.1f} ms)", flush=True)
+    print(f"retrieve path: launches {retrieve_launches} (query tower "
+          f"{tower_launches}); bta scored share {share:.4%}", flush=True)
+    for cell, batch in (("serve_p99", p99[0]), ("serve_bulk", bulk[0])):
+        profile_call(f"one {cell} forward",
+                     lambda: recsys.forward(params, batch, cfg),
+                     {"B5 embedding_bag_kernel": "embedding_bag_kernel",
+                      "B6 fm_interaction_kernel": "fm_interaction_kernel"})
+
+    # forward launches B5 only in sum mode over the linear weights, the
+    # query tower only in mean mode: each row's launches on the path
+    launches = {
+        "embedding_bag[sum,d=1]": serve_launches["embedding_bag"]
+        + retrieve_launches["embedding_bag"] - tower_launches,
+        "embedding_bag[mean,d=10]": tower_launches,
+        "fm_interaction": serve_launches["fm_interaction"]
+        + retrieve_launches["fm_interaction"]}
+    return [{
+        "name": row,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{row.split('[')[0]}.cu",
+        "replaces": REPLACES[row.split("[")[0]],
+        "launches": launches[row],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for row, rec in rows.items()]
 
 
 def main() -> None:
@@ -556,7 +947,9 @@ def run(dev, kind: str) -> None:
     print(f"bta path: gather_scores launches={bta_launches} "
           f"topk_mips launches={topk_mips.launches} in {bta_seconds:.1f} s; "
           f"peak device memory={peak_bytes / 2**20:.1f} MiB", flush=True)
-    profile_chunk(servers[lsh], U_all[lsh][:BATCH])
+    profile_call(f"one {BATCH}-query {lsh} bta chunk",
+                 lambda: servers[lsh].query(U_all[lsh][:BATCH], K),
+                 {"B4 gather_scores_kernel": "gather_scores_kernel"})
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -589,6 +982,7 @@ def run(dev, kind: str) -> None:
         "bound_by": b4["bound_by"],
         "library_ms": b4["library_ms"],
     })
+    kernels["kernels"].extend(recsys_path(dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

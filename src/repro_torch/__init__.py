@@ -4,6 +4,9 @@ The port serves the paper's exact top-K query over a separable linear
 model on one NVIDIA GPU: ``SepLRModel`` -> ``build_index`` and the
 ``norm_major`` layout -> the engine registry (``naive``, ``norm`` and the
 hand-written CUDA kernel engine ``topk_mips``) -> ``TopKServer.query``.
+It also serves the recsys models (``models.recsys``: the query tower as
+the SEP-LR query, exact retrieval, then ``TwoStageRanker``'s full-model
+re-rank).
 
 Every entry point takes ``device=None``, which means ``"cuda"``: the port
 runs on the card unless the caller asks for the CPU, and it raises rather

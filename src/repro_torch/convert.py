@@ -11,6 +11,12 @@ a chosen device, so that both packages compute over the identical state:
 * the eight :class:`ListMajorLayout` fields (the six prefix tiles, any of
   them ``None`` for a single-sided layout, ``rank_by_item`` and
   ``prefix_depth``) -> :class:`ListMajorLayout`
+
+:func:`recsys_params_from_reference` carries the reference's recsys
+parameters (``repro.models.recsys.init_params``: a nested dict of arrays
+with MLP lists of ``{"w", "b"}``) across as the same tree of tensors.
+Dense weights keep the reference's ``[in, out]`` layout (the port applies
+them as ``x @ w`` too), so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -73,3 +79,19 @@ def from_reference(arrays: Mapping[str, Any], device=None, name=None):
         f"unrecognised reference state with fields {sorted(keys)}; expected "
         f"{sorted(MODEL_FIELDS)}, {sorted(INDEX_FIELDS)}, "
         f"{sorted(CATALOG_FIELDS)} or {sorted(LIST_FIELDS)}")
+
+
+def recsys_params_from_reference(params: Any, device=None) -> Any:
+    """The reference's recsys parameter tree (dicts and lists of numpy
+    arrays) as the same tree of float32 tensors on ``device`` (``None`` =
+    ``cuda``)."""
+    dev = resolve_device(device)
+
+    def put(node):
+        if isinstance(node, Mapping):
+            return {key: put(v) for key, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [put(v) for v in node]
+        return torch.tensor(np.asarray(node, np.float32), device=dev)
+
+    return put(params)

@@ -87,6 +87,14 @@ SIGNATURES = {
         "gather_scores_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "gather_scores_error_string": ([_I], ctypes.c_char_p),
     },
+    "embedding_bag": {
+        "embedding_bag_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
+        "embedding_bag_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fm_interaction": {
+        "fm_interaction_launch": ([_P] * 2 + [_I] * 4 + [_P], _I),
+        "fm_interaction_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 

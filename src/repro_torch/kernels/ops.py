@@ -1,9 +1,19 @@
-"""``MIPSCatalog``: the catalogue preparation around the top-K MIPS kernel.
+"""The kernels' public entry points.
 
+``MIPSCatalog`` is the catalogue preparation around the top-K MIPS kernel.
 It handles norm ordering, padding, the per-tile and per-superblock max
 norms and the ``lb0`` pre-screen, and it maps kernel-local row ids back to
 catalogue ids. The kernel itself stays shape-strict
 (:mod:`repro_torch.kernels.topk_mips`).
+
+``embedding_bag(table, ids, mode="sum")`` and ``fm_interaction(emb)`` are
+the recsys kernels' entry points, the counterparts of the reference's
+``ops.embedding_bag`` and ``ops.fm_interaction``. The reference pads the
+batch to a multiple of ``block_b`` for its Pallas grid and slices the
+result back; the port's kernels take any batch, so that padding and the
+``block_b``/``interpret`` knobs are left out
+(:mod:`repro_torch.kernels.embedding_bag`,
+:mod:`repro_torch.kernels.fm_interaction`).
 """
 
 from __future__ import annotations
@@ -14,6 +24,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.index import to_host
 from repro_torch.core.naive import stable_topk
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels.fm_interaction import fm_interaction  # noqa: F401
 from repro_torch.kernels.topk_mips import NEG_INF, topk_mips
 
 

@@ -1,0 +1,67 @@
+"""Shared model plumbing for the recsys towers: activations, init, MLPs.
+
+Parameters are plain nested dicts and lists of tensors, as the reference's
+pytrees are, so that :func:`repro_torch.convert.recsys_params_from_reference`
+carries them across leaf for leaf. A dense layer's weight ``w`` is
+``[in, out]`` and applies as ``x @ w``, as in the reference. Sharding
+(the reference's ``MeshRules``/``shard``) is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+# jax.nn.gelu defaults to the tanh approximation, so both names map to it.
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def dense_init(generator: torch.Generator, shape) -> torch.Tensor:
+    """LeCun-normal (fan-in, the second-to-last axis) init in fp32, drawn
+    from ``generator`` on its device."""
+    return (torch.randn(tuple(shape), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+            / math.sqrt(shape[-2]))
+
+
+def count_params(params: PyTree) -> int:
+    """Number of scalars in a nested dict/list/tuple of tensors."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return 0
+
+
+def mlp_params(generator: torch.Generator, dims: Sequence[int]):
+    """Plain MLP parameter stack on the generator's device:
+    ``[{"w": [in, out], "b": [out]}, ...]``."""
+    return [{"w": dense_init(generator, (dims[i], dims[i + 1])),
+             "b": torch.zeros((dims[i + 1],), dtype=torch.float32,
+                              device=generator.device)}
+            for i in range(len(dims) - 1)]
+
+
+def mlp_apply(layers, x: torch.Tensor, act: str = "relu",
+              final_act: bool = False) -> torch.Tensor:
+    fn = ACTIVATIONS[act]
+    n = len(layers)
+    for i, p in enumerate(layers):
+        x = x @ p["w"].to(x.dtype)
+        if "b" in p:
+            x = x + p["b"].to(x.dtype)
+        if i + 1 < n or final_act:
+            x = fn(x)
+    return x

@@ -267,7 +267,8 @@ class TwoStageRanker:
 
     rerank_fn(query_batch, candidate_ids) -> scores of the retrieved set.
     The retrieval engine is addressed by registry name, as in
-    :meth:`TopKServer.query`.
+    :meth:`TopKServer.query`. ``U`` may be the query tower's output on the
+    server's device: it is retrieved there, with no host round trip.
     """
 
     def __init__(self, retrieval: TopKServer,

@@ -1,5 +1,6 @@
-"""The ``topk_mips`` and ``gather_scores`` CUDA kernels against their plain
-PyTorch versions, on the card. These tests need a CUDA device (the kernels
+"""The ``topk_mips``, ``gather_scores``, ``embedding_bag`` and
+``fm_interaction`` CUDA kernels against their plain PyTorch versions, on
+the card. These tests need a CUDA device (the kernels
 have no CPU mode) and skip with a reason where there is none; the file
 imports no jax, so it also runs where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -10,12 +11,23 @@ wherever scores are distinct, stats equal exactly. ``gather_scores``
 scores every candidate, near-zero sums included, so it is held, as in
 ``chip_smoke.py``, to 1e-5 relative plus 1e-4 absolute: two fp32
 summation orders over R <= 200 products of magnitude ~1 differ by a few
-ulps of the largest partial sum (about 2e-6 measured at R = 100)."""
+ulps of the largest partial sum (about 2e-6 measured at R = 100).
+``embedding_bag`` and ``fm_interaction`` are held to the same 1e-5
+relative plus 1e-4 absolute in float32 (fp32 sums in another order). In
+float16 both versions sum in fp32 and round the output once, so they may
+differ by one float16 ulp (at most 2**-10 relative): they are held to 2e-3
+relative plus 1e-3 of the case's largest finite value (for outputs that
+cancel to near zero), far inside the reference's 5e-2, so a wrong scale
+or an output of zeros fails."""
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_plain)
+from repro_torch.kernels.fm_interaction import (fm_interaction,
+                                                fm_interaction_plain)
 from repro_torch.kernels.gather_scores import (gather_scores,
                                                gather_scores_plain)
 from repro_torch.kernels.ops import MIPSCatalog
@@ -24,6 +36,7 @@ from repro_torch.kernels.topk_mips import MODES, topk_mips, topk_mips_plain
 from _torch_parity import assert_topk_equal
 
 B4_RTOL, B4_ATOL = 1e-5, 1e-4
+F16_RTOL, F16_ATOL_OF_MAX = 2e-3, 1e-3
 
 
 def _assert_b4(got, want):
@@ -130,3 +143,93 @@ def test_gather_scores_wrapper_rejects_what_the_kernel_does_not_take():
         gather_scores(torch.zeros((4, 5000), device="cuda"),
                       torch.zeros(2, dtype=torch.int32, device="cuda"),
                       torch.zeros(5000, device="cuda"))
+
+
+def _assert_recsys(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        rtol, atol = 1e-5, 1e-4
+    else:
+        finite = want.float()[torch.isfinite(want)]
+        scale = float(finite.abs().max()) if finite.numel() else 0.0
+        rtol, atol = F16_RTOL, F16_ATOL_OF_MAX * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("b,f,v,d", [
+    (512, 39, 39000, 10),   # the query tower's shape at DeepFM's field count
+    (512, 39, 39000, 1),    # the first-order term: a [V, 1] table
+    (33, 7, 500, 64),       # a bag spanning two warps, B not a block multiple
+    (5, 0, 10, 3),          # no fields: sum 0, mean NaN (0 / 0)
+])
+def test_embedding_bag_kernel_matches_plain_version(b, f, v, d, dtype):
+    _need_card()
+    rng = np.random.default_rng(b + f + d)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    table = table.to(dtype).cuda()
+    ids = torch.from_numpy(rng.integers(0, v, (b, f)).astype(np.int32)).cuda()
+    before = embedding_bag.launches
+    for mode in ("sum", "mean"):
+        got = embedding_bag(table, ids, mode)
+        torch.cuda.synchronize()
+        _assert_recsys(got, embedding_bag_plain(table, ids, mode))
+    assert embedding_bag.launches == before + 2
+
+
+def test_embedding_bag_kernel_ids_follow_jnp_take():
+    _need_card()
+    table = torch.randn((40, 9), device="cuda")
+    ids = torch.tensor([[3, -1, 39], [-40, 0, 1], [40, 1, 2], [-41, 0, 0],
+                        [2 ** 31 - 1, 0, 0]], dtype=torch.int32,
+                       device="cuda")
+    for mode in ("sum", "mean"):
+        out = embedding_bag(table, ids, mode)
+        assert torch.isnan(out[2:]).all() and torch.isfinite(out[:2]).all()
+        _assert_recsys(out, embedding_bag_plain(table, ids, mode))
+    _assert_recsys(embedding_bag(table, ids)[0], table[[3, 39, 39]].sum(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("b,f,d", [
+    (512, 39, 10),     # DeepFM's serve_p99 shape
+    (100, 39, 1),      # d = 1: 256 bags a block
+    (7, 2, 3),         # B not a multiple of a block's 85 bags
+    (3, 5, 300),       # d past 256: one bag a block
+])
+def test_fm_interaction_kernel_matches_plain_version(b, f, d, dtype):
+    _need_card()
+    rng = np.random.default_rng(b + f + d)
+    emb = torch.from_numpy(
+        (rng.standard_normal((b, f, d)) * 0.5).astype(np.float32))
+    emb = emb.to(dtype).cuda()
+    before = fm_interaction.launches
+    got = fm_interaction(emb)
+    torch.cuda.synchronize()
+    _assert_recsys(got, fm_interaction_plain(emb))
+    assert fm_interaction.launches == before + 1
+
+
+def test_recsys_kernels_count_cuda_launches_only_and_check_operands():
+    _need_card()
+    before = (embedding_bag.launches, fm_interaction.launches)
+    embedding_bag(torch.zeros((4, 2)), torch.zeros((3, 2), dtype=torch.int32))
+    fm_interaction(torch.zeros((3, 2, 4)))
+    assert (embedding_bag.launches, fm_interaction.launches) == before
+    table = torch.zeros((4, 2), device="cuda")
+    ids = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag(table, ids.long())
+    with pytest.raises(ValueError, match="float32 or float16"):
+        embedding_bag(table.double(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32,
+                                         device="cuda").t())
+    with pytest.raises(ValueError, match="one device"):
+        embedding_bag(table, ids.cpu())
+    with pytest.raises(ValueError, match="kernel limits"):
+        fm_interaction(torch.zeros((2, 3, 2000), device="cuda"))
+    with pytest.raises(ValueError, match="float32 or float16"):
+        fm_interaction(torch.zeros((2, 3, 4), device="cuda",
+                                   dtype=torch.float64))
