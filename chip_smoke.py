@@ -16,7 +16,8 @@ checkout. In order, it
    325,056 x 100 catalogue, B = 64, k = 10, block_m 256, superblock 8),
    on the bookcrossing-like catalogue, and on two small edge cases
    (fewer real rows than k; all scores negative), and times the kernel,
-   its plain version and ``torch.matmul`` + ``torch.topk``;
+   each of its two phases alone (with its scratch bytes), its plain
+   version and, on both catalogues, ``torch.matmul`` + ``torch.topk``;
 4. holds ``gather_scores`` (kernel B4, the ``bta`` engine's tail scorer)
    against its plain version at the tail's shape (B = 64 lanes, the
    25,600 ids of the first post-prefix block of an LSHTC-like list walk,
@@ -241,16 +242,37 @@ def compare_modes(cat, U, k, label, timing: bool):
             flops = 2.0 * float(ks[:, 0].double().sum()) * R
             bound_ms, bound_by = bound(nbytes, flops)
             rec.update(
-                ms=timed_ms(lambda: topk_mips(**args), 10),
-                plain_ms=timed_ms(lambda: topk_mips_plain(**args), 2),
+                ms=timed_ms_cold(lambda: topk_mips(**args), 10),
+                ms_warm=timed_ms(lambda: topk_mips(**args), 10),
+                plain_ms=timed_ms_cold(lambda: topk_mips_plain(**args), 2),
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
+            rec.update(kernel_phases(args))
         out[mode] = rec
         print(f"  {label:>18s} {mode:>17s}: max_abs_err={err:.3g} "
               + " ".join(f"{key}={rec[key]:.4g}" for key in
-                         ("ms", "plain_ms", "bound_ms") if key in rec),
+                         ("ms", "ms_warm", "plain_ms", "bound_ms",
+                          "score_ms", "walk_ms") if key in rec),
               flush=True)
     return out
+
+
+def kernel_phases(args) -> dict:
+    """The ``topk_mips`` kernel's two phases timed on their own (CUDA
+    events from a cold L2, mean of 10, each phase launched alone on
+    buffers of the same call) and its scratch bytes. The batch must fit
+    one query slice."""
+    from repro_torch.kernels.topk_mips import KernelPhases
+    run = KernelPhases(args["T_sorted"], args["U"], args["tile_bounds"],
+                       args["live"], args["k"], args["block_m"],
+                       args["mode"], args.get("superblock", 1),
+                       args["num_real"])
+    check(len(run.slices) == 1, "topk_mips phases: the batch needs "
+          f"{len(run.slices)} query slices, not one")
+    run.score()
+    return {"score_ms": timed_ms_cold(run.score, 10),
+            "walk_ms": timed_ms_cold(run.walk, 10),
+            "scratch_bytes": run.scratch_bytes}
 
 
 def tail_ids(index, U, block: int, step: int):
@@ -775,16 +797,21 @@ def run(dev, kind: str) -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- the kernel against its plain version on the card ---------------------
-    compare = {}
+    compare, library_ms = {}, {}
     for name, *_rest in CATALOGUES:
         cat = servers[name].ctx.catalog
         U = torch.from_numpy(U_all[name][:BATCH]).to(dev)
         compare[name] = compare_modes(cat, U, K, name, timing=True)
+        library_ms[name] = timed_ms_cold(
+            lambda: torch.topk(torch.matmul(U, cat.T_sorted.T), K), 10)
+        print(f"  {name:>18s} library torch.topk(torch.matmul(U, T.T)): "
+              f"{library_ms[name]:.4g} ms", flush=True)
     compare.update(edge_cases(rng, dev))
-    main_cat = servers[CATALOGUES[0][0]].ctx.catalog
-    U64 = torch.from_numpy(U_all[CATALOGUES[0][0]][:BATCH]).to(dev)
-    library_ms = timed_ms(
-        lambda: torch.topk(torch.matmul(U64, main_cat.T_sorted.T), K), 10)
+    lsh_modes = compare[CATALOGUES[0][0]]
+    print("topk_mips phases at " + CATALOGUES[0][0] + ": " + json.dumps({
+        mode: {key: rec[key] for key in ("ms", "ms_warm", "score_ms",
+                                         "walk_ms", "scratch_bytes")}
+        for mode, rec in lsh_modes.items()}), flush=True)
 
     # -- kernel B4 against its plain version on the card ----------------------
     lsh, bc = (c[0] for c in CATALOGUES)
@@ -966,7 +993,7 @@ def run(dev, kind: str) -> None:
         "plain_ms": main[mode]["plain_ms"],
         "bound_ms": main[mode]["bound_ms"],
         "bound_by": main[mode]["bound_by"],
-        "library_ms": library_ms,
+        "library_ms": library_ms[lsh],
     } for mode in MODES]}
     b4 = next(iter(compare_b4.values()))
     kernels["kernels"].append({

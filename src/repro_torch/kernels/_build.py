@@ -80,7 +80,8 @@ def build(name: str) -> BuildResult:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "topk_mips": {
-        "topk_mips_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+        "topk_mips_score_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        "topk_mips_walk_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
         "topk_mips_error_string": ([_I], ctypes.c_char_p),
     },
     "gather_scores": {

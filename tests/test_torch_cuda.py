@@ -31,7 +31,8 @@ from repro_torch.kernels.fm_interaction import (fm_interaction,
 from repro_torch.kernels.gather_scores import (gather_scores,
                                                gather_scores_plain)
 from repro_torch.kernels.ops import MIPSCatalog
-from repro_torch.kernels.topk_mips import MODES, topk_mips, topk_mips_plain
+from repro_torch.kernels.topk_mips import (MODES, query_slices, topk_mips,
+                                          topk_mips_plain)
 
 from _torch_parity import assert_topk_equal
 
@@ -51,27 +52,86 @@ def _need_card():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
-@pytest.mark.parametrize("m,r,k,block", [
-    (20000, 50, 10, 256),   # decaying norms: the pre-screen cuts the scan
-    (3000, 17, 3, 64),      # R with no 16-byte row alignment
-    (5, 8, 10, 256),        # fewer real rows than k
+def _catalogue(rng, m, r, kind):
+    """decaying norms, flat (unit) norms, or decaying with every row
+    duplicated (ties within and across tiles)."""
+    T = rng.standard_normal((m, r)).astype(np.float32)
+    if kind == "flat":
+        return T / np.linalg.norm(T, axis=1, keepdims=True)
+    T *= ((1.0 / (1.0 + np.arange(m)))[:, None] ** 0.3).astype(np.float32)
+    if kind == "dup":      # runs of 3 straddle the tile boundaries
+        T = np.repeat(T[: m // 3], 3, axis=0)
+    return T
+
+
+@pytest.mark.parametrize("m,r,k,block,b,kind", [
+    (20000, 50, 10, 256, 33, "decaying"),  # the pre-screen cuts the scan
+    (3000, 17, 3, 64, 33, "decaying"),     # R with no 16-byte row alignment
+    (5, 8, 10, 256, 33, "decaying"),       # fewer real rows than k
+    (4000, 24, 100, 64, 33, "decaying"),   # k > block_m: whole-tile lists
+    (600, 4096, 10, 64, 33, "decaying"),   # R = 4096: a few rows a stage
+    (20000, 100, 10, 256, 1, "decaying"),  # B = 1 (MIPSCatalog.query)
+    (3000, 50, 10, 64, 33, "dup"),         # ties within and across tiles
+    (5000, 100, 10, 128, 130, "flat"),     # nearly every tile visited; B > 64
+    (3000, 17, 5, 50, 33, "decaying"),     # block_m * R % 4 != 0: cp.async
 ])
-def test_cuda_kernel_matches_plain_version(m, r, k, block):
+def test_cuda_kernel_matches_plain_version(m, r, k, block, b, kind):
     _need_card()
     rng = np.random.default_rng(m + r)
-    T = rng.standard_normal((m, r)).astype(np.float32)
-    T *= ((1.0 / (1.0 + np.arange(m)))[:, None] ** 0.3).astype(np.float32)
+    T = _catalogue(rng, m, r, kind)
     cat = MIPSCatalog(T, block_m=block, superblock=8, device="cuda")
-    U = rng.standard_normal((33, r)).astype(np.float32)
-    before = topk_mips.launches
+    U = rng.standard_normal((b, r)).astype(np.float32)
     for mode in MODES:
         args = cat.kernel_args(U, k, mode)
+        before = topk_mips.launches
+        got = topk_mips(**args)
+        assert topk_mips.launches == before + 1     # one per call
+        want = topk_mips_plain(**args)
+        torch.cuda.synchronize()
+        assert_topk_equal(got[:2], want[:2])
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+
+
+def test_cuda_kernel_takes_any_tile_bounds():
+    """Non-monotone bounds: every tile up to n_tiles is gated on its own
+    bound (no early stop), on the card as in the plain version."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    T = _catalogue(rng, 6000, 20, "decaying")
+    cat = MIPSCatalog(T, block_m=64, superblock=4, device="cuda")
+    U = rng.standard_normal((40, 20)).astype(np.float32)
+    for mode in MODES:
+        args = cat.kernel_args(U, 7, mode)
+        perm = torch.from_numpy(rng.permutation(cat.n_blocks)).cuda()
+        scale = torch.from_numpy(rng.uniform(0.3, 1.5, cat.n_blocks)
+                                 .astype(np.float32)).cuda()
+        args["tile_bounds"] = (args["tile_bounds"][:, perm]
+                               * scale).contiguous()
         got = topk_mips(**args)
         want = topk_mips_plain(**args)
         torch.cuda.synchronize()
         assert_topk_equal(got[:2], want[:2])
         torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
-    assert topk_mips.launches == before + len(MODES)
+
+
+def test_cuda_kernel_runs_a_batch_in_scratch_bounded_slices():
+    """A batch whose phase-1 scratch exceeds the wrapper's budget runs in
+    several query slices over one scratch, still one launch per call."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    T = _catalogue(rng, 4096, 16, "decaying")
+    cat = MIPSCatalog(T, block_m=64, superblock=4, device="cuda")
+    U = rng.standard_normal((20000, 16)).astype(np.float32)
+    assert len(query_slices(20000, cat.n_blocks, 64)) > 1
+    for mode in MODES:
+        args = cat.kernel_args(U, 100, mode)
+        before = topk_mips.launches
+        got = topk_mips(**args)
+        assert topk_mips.launches == before + 1
+        want = topk_mips_plain(**args)
+        torch.cuda.synchronize()
+        assert_topk_equal(got[:2], want[:2])
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
@@ -88,6 +148,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
                      .contiguous().t()})
     with pytest.raises(ValueError, match="one device"):
         topk_mips(**{**args, "U": args["U"].cpu()})
+    flat = torch.empty(512 * 8 + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        topk_mips(**{**args, "T_sorted": flat[1:].view(512, 8)})
 
 
 @pytest.mark.parametrize("m,r,b,c", [

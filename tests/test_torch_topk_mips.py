@@ -18,7 +18,7 @@ from repro.kernels.topk_mips import (topk_mips_pallas,
 from repro_torch.convert import CATALOG_FIELDS, from_reference
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.kernels.ref import topk_mips_ref
-from repro_torch.kernels.topk_mips import topk_mips
+from repro_torch.kernels.topk_mips import query_slices, topk_mips
 
 from _torch_parity import assert_topk_equal, host
 
@@ -177,3 +177,128 @@ def test_plain_version_matches_the_oracle_and_validates(two_level):
         topk_mips(**{**args, "live": None})
     with pytest.raises(ValueError, match="tile_bounds"):
         topk_mips(**{**args, "tile_bounds": args["tile_bounds"][:, :-1]})
+
+
+def _decomposed(T_sorted, U, tile_bounds, live, k, block_m, mode,
+                superblock=1, num_real=-1):
+    """The CUDA kernel's two phases in numpy. Phase 1: every (query, tile)
+    of the live prefix scored, its top min(k, block_m) rows kept in
+    (value desc, row asc) order, and its maximum. Phase 2: per query, walk
+    tiles 0 .. n_tiles-1; a tile with bound > K-th best is visited, and
+    its list entries strictly above the K-th best merged, the carry
+    winning ties."""
+    T_sorted, U, tile_bounds = (host(x).astype(np.float32)
+                                for x in (T_sorted, U, tile_bounds))
+    M_pad = T_sorted.shape[0]
+    n_blocks = M_pad // block_m
+    num_real = M_pad if num_real < 0 else num_real
+    kk = min(k, block_m)
+    B = U.shape[0]
+    if mode == "single_level":
+        n_tiles = np.full(B, n_blocks)
+    else:
+        scale = superblock if mode == "two_level_batched" else 1
+        n_tiles = np.clip(host(live).astype(np.int64) * scale, 0, n_blocks)
+    lists, tmax = {}, {}
+    for t in range(int(n_tiles.max(initial=0))):
+        rows = np.arange(t * block_m, (t + 1) * block_m)
+        sc = U @ T_sorted[rows].T
+        sc = np.where(rows[None, :] < num_real, sc, np.float32(-1e30))
+        for b in range(B):
+            order = np.lexsort((rows, -sc[b].astype(np.float64)))[:kk]
+            lists[b, t] = [(sc[b, i], int(rows[i])) for i in order]
+            tmax[b, t] = sc[b].max()
+    vals = np.full((B, k), -1e30, np.float32)
+    ids = np.full((B, k), -1, np.int32)
+    stats = np.zeros((B, 3), np.int32)
+    for b in range(B):
+        carry = [(np.float32(-1e30), -1)] * k
+        visited = 0
+        for t in range(n_tiles[b]):
+            lb = carry[-1][0]
+            if not tile_bounds[b, t] > lb:
+                continue
+            visited += 1
+            if tmax[b, t] > lb:
+                cands = [(v, r) for v, r in lists[b, t] if v > lb]
+                keyed = ([(-v, 0, j, v, r) for j, (v, r) in enumerate(carry)]
+                         + [(-v, 1, p, v, r) for p, (v, r) in
+                            enumerate(cands)])
+                carry = [e[3:] for e in sorted(keyed)[:k]]
+        vals[b] = [v for v, _ in carry]
+        ids[b] = [r for _, r in carry]
+        stats[b] = (visited * block_m, visited, n_tiles[b])
+    return vals, ids, stats
+
+
+@pytest.mark.parametrize("case,m,r,k,block,sb", [
+    ("decaying", 2048, 16, 5, 128, 4),
+    ("flat", 512, 8, 5, 64, 4),
+    ("k>block_m", 1024, 12, 100, 64, 2),
+    ("num_real<k", 3, 4, 5, 64, 1),
+    ("duplicates", 900, 10, 7, 64, 4),
+    ("non-monotone", 2048, 16, 5, 128, 4),
+])
+def test_kernel_decomposition_matches_plain_version(case, m, r, k, block,
+                                                    sb):
+    """The two-phase algorithm of the CUDA kernel (per-tile top-k lists,
+    then the gated walk) equals the plain version in every mode, values,
+    ids and all three stats columns; with the catalogue's own bounds the
+    two-level modes also equal the reference: two_level_batched its
+    query_batch (the batched Pallas prefetch kernel in interpret mode),
+    two_level_tile its single-query query, row by row (the single-query
+    prefetch kernel in interpret mode)."""
+    rng = np.random.default_rng(m + k)
+    T = (_decaying(m, r, 0.5, m) if case != "flat"
+         else rng.standard_normal((m, r)).astype(np.float32))
+    if case == "flat":
+        T /= np.linalg.norm(T, axis=1, keepdims=True)
+    if case == "duplicates":        # runs of 3 straddle the tile boundaries
+        T = np.repeat(T[: m // 3], 3, axis=0)
+    ref = RefCatalog(T, block_m=block, superblock=sb)
+    cat = _port(ref)
+    U = rng.standard_normal((5, r)).astype(np.float32)
+    for mode in ("two_level_batched", "two_level_tile", "single_level"):
+        args = cat.kernel_args(U, k, mode)
+        if case == "non-monotone":
+            perm = torch.from_numpy(rng.permutation(cat.n_blocks))
+            scale = torch.from_numpy(
+                rng.uniform(0.3, 1.5, cat.n_blocks).astype(np.float32))
+            args["tile_bounds"] = (args["tile_bounds"][:, perm]
+                                   * scale).contiguous()
+        got = _decomposed(**args)
+        want = topk_mips(**args)
+        _assert_same(got, want)
+        if case == "non-monotone" or mode == "single_level":
+            continue
+        ids = cat._to_catalogue_ids(torch.from_numpy(got[1]))
+        if mode == "two_level_batched":
+            _assert_same((got[0], ids, got[2]),
+                         ref.query_batch(jnp.asarray(U), k))
+        else:
+            for b in range(U.shape[0]):
+                _assert_same((got[0][b], ids[b], got[2][b]),
+                             ref.query(jnp.asarray(U[b]), k))
+
+
+@pytest.mark.parametrize("B,n_blocks,kk,budget", [
+    (64, 1272, 10, 256 << 20),     # LSHTC-like at k = 10: one slice
+    (100_000, 1272, 100, 256 << 20),
+    (1000, 64, 64, 330_240),       # 10 queries a slice
+    (5, 10_000, 256, 1000),        # one query's scratch over the budget
+    (130, 8, 4, 8 * 36 * 64),      # exactly 64 queries a slice
+])
+def test_query_slices_bound_the_kernel_scratch(B, n_blocks, kk, budget):
+    """The wrapper's query slices cover the batch in order, each within
+    the scratch budget (or one query), in whole groups of 64 where a
+    slice holds 64 or more."""
+    slices = query_slices(B, n_blocks, kk, budget)
+    assert slices[0][0] == 0 and slices[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    per_query = n_blocks * (8 * kk + 4)
+    rows = slices[0][1] - slices[0][0]
+    assert all(b1 - b0 <= rows for b0, b1 in slices)
+    assert rows == 1 or rows * per_query <= budget
+    assert rows < 64 or rows % 64 == 0 or rows == B
+    if B * per_query > budget:
+        assert len(slices) > 1
