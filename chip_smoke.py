@@ -21,10 +21,14 @@ checkout. In order, it
 4. holds ``gather_scores`` (kernel B4, the ``bta`` engine's tail scorer)
    against its plain version at the tail's shape (B = 64 lanes, the
    25,600 ids of the first post-prefix block of an LSHTC-like list walk,
-   repeats included), at the bookcrossing-like R = 50, and in the 1-D
-   form with C not a multiple of a block's 32 rows, and times it, its
-   plain version and ``torch.bmm`` over the gathered rows from a cold
-   L2 (and the kernel again with a warm one);
+   repeats included: the lane path), at the bookcrossing-like R = 50, on
+   the block's first few lanes (below ``FEW_LANES``: the row path) and in
+   the 1-D form with C not a multiple of a block's 32 rows, prints the
+   path each case took, and times the LSHTC-like cases, the other path
+   forced, their plain version and ``torch.bmm`` over the gathered rows
+   from a cold L2 (and the kernel again with a warm one); then times both
+   paths, forced, on the block's first 1..64 lanes (the sweep
+   ``FEW_LANES`` is read from);
 5. drives the ``topk_mips`` path — ``TopKServer.query`` of 256 queries
    through ``topk_mips``, ``norm`` and ``naive`` on both catalogues, plus
    the kernel catalogue's single-query and pre-screen-off entry points —
@@ -51,8 +55,10 @@ checkout. In order, it
    the counters set to 0 just before and read just after, and checks the
    first 64 logits against the same ``forward`` on the CPU; then runs the
    query tower (B5) for 64 queries, exact top-100 retrieval of 1,000,000
-   candidates through ``TopKServer`` (``bta`` against ``naive``) and
-   ``TwoStageRanker``'s full-model re-rank to the top 5, counted;
+   candidates through ``TopKServer`` (``bta`` against ``naive``, its
+   tail on B4) and ``TwoStageRanker``'s full-model re-rank to the top 5,
+   counted, and holds B4 against its plain version on the retrieval's
+   first tail block (R = 10, ids ``[64, 2,560]``), timed;
 8. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
@@ -95,6 +101,8 @@ MODE_OF = {"topk_mips": "two_level_batched", "query": "two_level_tile",
            "prescreen_off": "single_level"}
 KERNELS = ("topk_mips", "gather_scores", "embedding_bag", "fm_interaction")
 N_CPU_CHECK = 4
+# lane counts of B4's path sweep
+SWEEP_LANES = (1, 2, 3, 4, 5, 6, 8, 16, 32, 64)
 # Scores from two fp32 summation orders over R <= 100 products differ by a
 # few ulps of the largest partial sums: 1e-5 relative plus 1e-4 absolute.
 RTOL, ATOL = 1e-5, 1e-4
@@ -292,16 +300,20 @@ def tail_ids(index, U, block: int, step: int):
 
 
 def compare_gather(cases):
-    """``gather_scores`` against its plain version, per case; the first
-    case is timed. Each tail step of the main path brings new ids, so
-    ``ms``, ``plain_ms`` and ``library_ms`` start from a cold L2
-    (``ms_warm`` repeats the same ids). The bound counts each distinct
-    row once, with the ids, the queries and the output."""
+    """``gather_scores`` against its plain version, per case ``(label, T,
+    ids, U, timed)``, with the path the wrapper took. A timed case's
+    ``ms``, ``other_path_ms`` (the path not taken, forced), ``plain_ms``
+    and ``library_ms`` start from a cold L2 (each tail step of the main
+    path brings new ids; ``ms_warm`` repeats the same ids). The bound
+    counts each distinct row once, with the ids, the queries and the
+    output."""
     import torch
     from repro_torch.kernels.gather_scores import (gather_scores,
-                                                   gather_scores_plain)
+                                                   gather_scores_plain,
+                                                   PATHS, launch_plan,
+                                                   sm_count)
     out = {}
-    for i, (label, T, ids, U) in enumerate(cases):
+    for label, T, ids, U, timed in cases:
         got = gather_scores(T, ids, U)
         torch.cuda.synchronize()
         want = gather_scores_plain(T, ids, U)
@@ -311,31 +323,68 @@ def compare_gather(cases):
         check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
               f"gather_scores/{label}: differs from the plain version "
               f"(max abs err {err})")
+        ids2, U2 = (ids[None], U[None]) if ids.dim() == 1 else (ids, U)
+        B, C = ids2.shape
+        R = T.shape[1]
         rec = {"max_abs_err": err, "shape": list(ids.shape),
-               "distinct_ids": int(torch.unique(ids).numel())}
-        if i == 0:
-            B, C = ids.shape
-            R = T.shape[1]
+               "distinct_ids": int(torch.unique(ids).numel()),
+               "path": launch_plan(B, C, R, address=T.data_ptr() % 16,
+                                   sms=sm_count(T.device)).path}
+        if timed:
             nbytes = 4 * (rec["distinct_ids"] * R + 2 * B * C + B * R)
             flops = 2.0 * B * C * R
             bound_ms, bound_by = bound(nbytes, flops)
-            ids64 = ids.long()
+            ids64 = ids2.long()
+            other = next(p for p in PATHS if p != rec["path"])
             rec.update(
                 ms=timed_ms_cold(lambda: gather_scores(T, ids, U), 20),
+                other_path_ms=timed_ms_cold(
+                    lambda: gather_scores(T, ids, U, other), 20),
                 ms_warm=timed_ms(lambda: gather_scores(T, ids, U), 20),
                 plain_ms=timed_ms_cold(
                     lambda: gather_scores_plain(T, ids, U), 2),
                 library_ms=timed_ms_cold(
-                    lambda: torch.bmm(T[ids64], U[:, :, None]), 10),
+                    lambda: torch.bmm(T[ids64], U2[:, :, None]), 10),
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
         out[label] = rec
         print(f"  gather_scores {label:>24s} ids {rec['shape']} "
-              f"({rec['distinct_ids']} distinct): max_abs_err={err:.3g} "
+              f"({rec['distinct_ids']} distinct), {rec['path']} path: "
+              f"max_abs_err={err:.3g} "
               + " ".join(f"{key}={rec[key]:.4g}" for key in
-                         ("ms", "ms_warm", "plain_ms", "library_ms",
-                          "bound_ms")
+                         ("ms", "ms_warm", "other_path_ms", "plain_ms",
+                          "library_ms", "bound_ms")
                          if key in rec), flush=True)
+    return out
+
+
+def path_sweep(T, ids, U) -> dict:
+    """Kernel B4's two paths, each forced, on the first B lanes of one
+    tail block for B in ``SWEEP_LANES``: CUDA events from a cold L2, mean
+    of 10. The wrapper's ``FEW_LANES`` (below it, the row path) is read
+    off this table."""
+    import torch
+    from repro_torch.kernels.gather_scores import (FEW_LANES, PATHS,
+                                                   gather_scores,
+                                                   gather_scores_plain)
+    out = {}
+    for b in SWEEP_LANES:
+        i, u = ids[:b].contiguous(), U[:b].contiguous()
+        want = gather_scores_plain(T, i, u)
+        ms = {}
+        for path in PATHS:
+            got = gather_scores(T, i, u, path)
+            torch.cuda.synchronize()
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"gather_scores {path} path, {b} lanes: differs from the "
+                  "plain version")
+            ms[path] = timed_ms_cold(lambda: gather_scores(T, i, u, path), 10)
+        out[b] = ms
+        print(f"  gather_scores path sweep, {b:3d} lanes x {ids.shape[1]}: "
+              + " ".join(f"{p} {m:.4g} ms" for p, m in ms.items()),
+              flush=True)
+    print(f"  gather_scores FEW_LANES = {FEW_LANES}: the row path below "
+          f"{FEW_LANES} lanes, the lane path from {FEW_LANES}", flush=True)
     return out
 
 
@@ -539,7 +588,8 @@ def compare_recsys_kernels(params, ids_by_cell):
 
 def recsys_path(dev):
     """Step 7 of the module docstring. Returns the kernels line's rows of
-    B5 (one for each of its two calls on the path) and B6."""
+    B5 (one for each of its two calls on the path), B6 and B4 on the
+    retrieval's tail block."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -547,6 +597,7 @@ def recsys_path(dev):
     from repro_torch.data.synthetic import recsys_batches
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.fm_interaction import fm_interaction
+    from repro_torch.kernels.gather_scores import gather_scores
     from repro_torch.models import recsys
     from repro_torch.serving.server import TopKServer, TwoStageRanker
 
@@ -653,6 +704,9 @@ def recsys_path(dev):
     ranker = TwoStageRanker(server, rerank, retrieve_n=RETRIEVE_N)
     torch.cuda.synchronize()
     embedding_bag.launches = fm_interaction.launches = 0
+    gather_scores.launches = 0
+    gather_scores.path_launches = dict.fromkeys(gather_scores.path_launches,
+                                                0)
     t0 = time.perf_counter()
     U = recsys.query_tower(params, queries, cfg)
     torch.cuda.synchronize()
@@ -668,7 +722,9 @@ def recsys_path(dev):
     rank_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     retrieve_launches = {"embedding_bag": embedding_bag.launches,
-                         "fm_interaction": fm_interaction.launches}
+                         "fm_interaction": fm_interaction.launches,
+                         "gather_scores": gather_scores.launches}
+    retrieve_paths = dict(gather_scores.path_launches)
     check(tower_launches > 0,
           "the query tower launched embedding_bag 0 times")
     check(retrieve_launches["embedding_bag"] > tower_launches,
@@ -720,11 +776,12 @@ def recsys_path(dev):
           f"{1e3 * rerank_s[0]:.1f} ms (the first forward at that shape; "
           f"again on the same pairs {rerank_warm_ms:.1f} ms)", flush=True)
     print(f"retrieve path: launches {retrieve_launches} (query tower "
-          f"{tower_launches}); bta scored share {share:.4%}", flush=True)
+          f"{tower_launches}; gather_scores by path {retrieve_paths}); bta "
+          f"scored share {share:.4%}", flush=True)
     for cell, batch in (("serve_p99", p99[0]), ("serve_bulk", bulk[0])):
         profile_call(f"one {cell} forward",
                      lambda: recsys.forward(params, batch, cfg),
-                     {"B5 embedding_bag_kernel": "embedding_bag_kernel",
+                     {"B5 embedding_bag_*_kernel": "embedding_bag_",
                       "B6 fm_interaction_kernel": "fm_interaction_kernel"})
 
     # forward launches B5 only in sum mode over the linear weights, the
@@ -735,6 +792,13 @@ def recsys_path(dev):
         "embedding_bag[mean,d=10]": tower_launches,
         "fm_interaction": serve_launches["fm_interaction"]
         + retrieve_launches["fm_interaction"]}
+    # kernel B4 on the retrieval's first tail block (R = 10), after the
+    # counted run
+    ctx = server.ctx
+    first_tail = ctx.layout("list_major").prefix_steps(ctx.block_size)
+    label = f"retrieval tail block, R = {cfg.embed_dim}"
+    ids = tail_ids(ctx.index, U, ctx.block_size, first_tail)
+    b4 = compare_gather([(label, ctx.targets, ids, U, True)])[label]
     return [{
         "name": row,
         "route": "cuda",
@@ -747,7 +811,10 @@ def recsys_path(dev):
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
-    } for row, rec in rows.items()]
+    } for row, rec in rows.items()] + [
+        b4_row(f"gather_scores[R={cfg.embed_dim}]", b4,
+               retrieve_launches["gather_scores"], b4["max_abs_err"])
+    ]
 
 
 def main() -> None:
@@ -760,6 +827,16 @@ def main() -> None:
     gpu = gpu_name_and_power()
     print(gpu, flush=True)
     run(torch.device("cuda"), torch.cuda.get_device_name(0))
+
+
+def b4_row(name, rec, launches, max_abs_err) -> dict:
+    """A row of the kernels line for one timed ``gather_scores`` case."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gather_scores.cu",
+            "replaces": REPLACES["gather_scores"], "launches": launches,
+            "max_abs_err": max_abs_err,
+            **{key: rec[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
 
 
 def run(dev, kind: str) -> None:
@@ -779,7 +856,7 @@ def run(dev, kind: str) -> None:
     from repro_torch.core.engines import EngineContext, get_engine
     from repro_torch.core.index import TopKIndex
     from repro_torch.core.seplr import random_model
-    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.gather_scores import FEW_LANES, gather_scores
     from repro_torch.kernels.topk_mips import topk_mips
     from repro_torch.serving.server import TopKServer
 
@@ -822,11 +899,17 @@ def run(dev, kind: str) -> None:
         ctx = servers[name].ctx
         U = torch.from_numpy(U_all[name][:BATCH]).to(dev)
         ids = tail_ids(ctx.index, U, ctx.block_size, first_tail)
-        gather_cases.append((f"{name} tail block", ctx.targets, ids, U))
-    T0, ids0, U0 = gather_cases[0][1:]
-    gather_cases.append(("1-D, C = 1000", T0, ids0[0, :1000].contiguous(),
-                         U0[0].contiguous()))
+        gather_cases.append((f"{name} tail block", ctx.targets, ids, U,
+                             name == lsh))
+    T0, ids0, U0 = gather_cases[0][1:4]
+    n_few = min(4, FEW_LANES - 1)
+    gather_cases += [
+        (f"first {n_few} lanes", T0, ids0[:n_few].contiguous(),
+         U0[:n_few].contiguous(), True),
+        ("1-D, C = 1000", T0, ids0[0, :1000].contiguous(),
+         U0[0].contiguous(), True)]
     compare_b4 = compare_gather(gather_cases)
+    sweep = path_sweep(T0, ids0, U0)
 
     # -- the topk_mips path, counted ------------------------------------------
     torch.cuda.synchronize()
@@ -863,6 +946,8 @@ def run(dev, kind: str) -> None:
     bta_steps, bta_lat = {}, {}
     torch.cuda.synchronize()
     topk_mips.launches = gather_scores.launches = 0
+    gather_scores.path_launches = dict.fromkeys(gather_scores.path_launches,
+                                                0)
     for srv in servers.values():
         srv.ctx.scan_steps.clear()
     t0 = time.perf_counter()
@@ -878,6 +963,7 @@ def run(dev, kind: str) -> None:
     torch.cuda.synchronize()
     bta_seconds = time.perf_counter() - t0
     bta_launches = gather_scores.launches
+    bta_path_launches = dict(gather_scores.path_launches)
     peak_bytes = torch.cuda.max_memory_allocated()
     lsh_tail = bta_steps[lsh, "mixed"].get("tail", 0)
     check(bta_launches > 0 and lsh_tail > 0,
@@ -971,12 +1057,13 @@ def run(dev, kind: str) -> None:
               f"chunk {sum(steps.values()) / n_chunks:.2f} (prefix "
               f"{steps.get('prefix', 0)}, tail {steps.get('tail', 0)}, "
               f"gather {steps.get('gather', 0)})", flush=True)
-    print(f"bta path: gather_scores launches={bta_launches} "
+    print(f"bta path: gather_scores launches={bta_launches} (by path "
+          f"{bta_path_launches}) "
           f"topk_mips launches={topk_mips.launches} in {bta_seconds:.1f} s; "
           f"peak device memory={peak_bytes / 2**20:.1f} MiB", flush=True)
     profile_call(f"one {BATCH}-query {lsh} bta chunk",
                  lambda: servers[lsh].query(U_all[lsh][:BATCH], K),
-                 {"B4 gather_scores_kernel": "gather_scores_kernel"})
+                 {"B4 gather_scores_*_kernel": "gather_scores_"})
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -995,21 +1082,19 @@ def run(dev, kind: str) -> None:
         "bound_by": main[mode]["bound_by"],
         "library_ms": library_ms[lsh],
     } for mode in MODES]}
-    b4 = next(iter(compare_b4.values()))
-    kernels["kernels"].append({
-        "name": "gather_scores",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gather_scores.cu",
-        "replaces": REPLACES["gather_scores"],
-        "launches": bta_launches,
-        "max_abs_err": max(rec["max_abs_err"] for rec in compare_b4.values()),
-        "ms": b4["ms"],
-        "plain_ms": b4["plain_ms"],
-        "bound_ms": b4["bound_ms"],
-        "bound_by": b4["bound_by"],
-        "library_ms": b4["library_ms"],
-    })
+    b4_err = max(rec["max_abs_err"] for rec in compare_b4.values())
+    kernels["kernels"] += [
+        b4_row("gather_scores", compare_b4[f"{lsh} tail block"],
+               bta_path_launches["lanes"], b4_err),
+        b4_row("gather_scores[few lanes]",
+               compare_b4[f"first {n_few} lanes"],
+               bta_path_launches["rows"], b4_err)]
     kernels["kernels"].extend(recsys_path(dev))
+    for row in kernels["kernels"]:
+        check(row["launches"] > 0,
+              f"the main path launched {row['name']} 0 times")
+    print("gather_scores path sweep (cold ms by lanes): "
+          + json.dumps(sweep), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

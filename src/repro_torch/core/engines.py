@@ -64,7 +64,6 @@ from repro_torch.core.layout import (DEFAULT_PREFIX_DEPTH,
                                      pad_zero_rows)
 from repro_torch.core.naive import TopKResult, naive_topk
 from repro_torch.core.strategies import sign_bucket
-from repro_torch.kernels.ops import MIPSCatalog
 
 
 def batch_bucket(n: int) -> int:
@@ -250,6 +249,9 @@ class EngineContext:
     def catalog(self):
         """Norm-ordered kernel catalogue (built on first kernel query)."""
         if self._catalog is None:
+            # imported here: kernels.ops imports from core, whose package
+            # imports this module
+            from repro_torch.kernels.ops import MIPSCatalog
             self._catalog = MIPSCatalog(self.targets, block_m=self.block_size,
                                         device=self.device)
         return self._catalog

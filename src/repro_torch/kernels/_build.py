@@ -85,11 +85,12 @@ SIGNATURES = {
         "topk_mips_error_string": ([_I], ctypes.c_char_p),
     },
     "gather_scores": {
-        "gather_scores_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "gather_scores_rows_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "gather_scores_lanes_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
         "gather_scores_error_string": ([_I], ctypes.c_char_p),
     },
     "embedding_bag": {
-        "embedding_bag_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
+        "embedding_bag_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
         "embedding_bag_error_string": ([_I], ctypes.c_char_p),
     },
     "fm_interaction": {

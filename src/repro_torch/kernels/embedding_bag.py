@@ -8,7 +8,9 @@ divided by ``F`` (``"mean"``), accumulated in float32. It is the recsys
 hot path: the query tower's field mean and the first-order term's sum
 over the linear weights (viewed as a ``[V, 1]`` table) in
 :mod:`repro_torch.models.recsys`. The kernel never materialises the
-gathered ``[B, F, d]`` rows.
+gathered ``[B, F, d]`` rows. :func:`launch_plan` picks its path by shape:
+at ``d = 1`` a lane per bag, whose warp stages its 32 bags' ids in shared
+memory; otherwise a thread per (bag, column) output.
 
 Ids follow ``jnp.take``, as the reference's oracle and models do: an id
 in ``[-V, 0)`` counts from the end of the table, and any id outside
@@ -24,10 +26,46 @@ for CUDA tensors it launches ``csrc/embedding_bag.cu`` or raises.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 MODES = ("sum", "mean")
 DTYPES = (torch.float32, torch.float16)
+# a block's threads and warps (csrc/embedding_bag.cu)
+THREADS = 256
+WARPS = THREADS // 32
+#: At d = 1 a block stages at most this many 4-byte ids in shared memory
+#: (two buffers a warp, one in flight while the other is read).
+SMEM_WORDS = 12288
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    path: str             # "bags" (d = 1: a lane a bag) or "cols"
+    fields: int           # bags path: fields a chunk (F when one holds all)
+    buf_words: int        # bags path: words of one of a warp's two buffers
+    smem: int             # dynamic shared-memory bytes a block
+    tasks: int            # bags path: warps' tasks (32 bags); cols: blocks
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(B: int, F: int, d: int) -> LaunchPlan:
+    """How the kernel runs ``[B, F]`` ids over a ``[V, d]`` table. At
+    ``d = 1`` (and ``F > 0``) the *bags* path: a warp's task is 32 bags, a
+    lane each, whose ids it stages ``FC`` fields at a time, each bag's in a
+    row of ``FC | 1`` words: as many fields as let a block's 8 warps x 2
+    buffers fit :data:`SMEM_WORDS`. Otherwise the *cols* path: a thread per
+    (bag, column) output, :data:`THREADS` a block."""
+    if d != 1 or F == 0:
+        return LaunchPlan("cols", 0, 0, 0, -(-B * d // THREADS))
+    words = SMEM_WORDS // (2 * WARPS)        # a buffer, with 3 for a shift
+    FC = min(F, (words - 6) // 32)
+    while FC > 1 and 32 * (FC | 1) + 6 > words:
+        FC -= 1
+    buf = (32 * (FC | 1) + 3 + 3) & ~3
+    return LaunchPlan("bags", FC, buf, 4 * 2 * WARPS * buf, -(-B // 32))
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, mode: str) -> None:
@@ -85,12 +123,14 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((B, d), dtype=table.dtype, device=table.device)
     if B == 0 or d == 0:
         return out
+    plan = launch_plan(B, F, d)
     from repro_torch.kernels._build import load
     lib = load("embedding_bag")
     with torch.cuda.device(table.device):
         err = lib.embedding_bag_launch(
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), B, F, V, d,
             int(mode == "mean"), int(table.dtype == torch.float16),
+            int(plan.path == "bags"), plan.fields, plan.buf_words,
             torch.cuda.current_stream(table.device).cuda_stream)
     if err != 0:
         msg = lib.embedding_bag_error_string(err).decode()

@@ -26,10 +26,12 @@ import torch
 
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_plain)
+from repro_torch.kernels.embedding_bag import launch_plan as bag_plan
 from repro_torch.kernels.fm_interaction import (fm_interaction,
                                                 fm_interaction_plain)
-from repro_torch.kernels.gather_scores import (gather_scores,
-                                               gather_scores_plain)
+from repro_torch.kernels.gather_scores import (FEW_LANES, gather_scores,
+                                               gather_scores_plain,
+                                               launch_plan)
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.kernels.topk_mips import (MODES, query_slices, topk_mips,
                                           topk_mips_plain)
@@ -43,6 +45,29 @@ F16_RTOL, F16_ATOL_OF_MAX = 2e-3, 1e-3
 def _assert_b4(got, want):
     torch.testing.assert_close(got, want, rtol=B4_RTOL, atol=B4_ATOL,
                                equal_nan=True)
+
+
+def _fp32_sum_excess(got, terms):
+    """How far ``got`` (any shape) lies outside the tolerance around the
+    float64 sum of ``terms`` (its shape plus a last axis of n summands);
+    <= 0 inside. The tolerance is sqrt(n) * 2**-24 * sum |term|, plus one
+    ulp for the final rounding: each of an fp32 order's n additions
+    rounds within 2**-24 of a partial sum no larger than sum |term|, and
+    the roundings add up like a random walk (Higham's sqrt(n) rule of
+    thumb). The worst case of any order, n * 2**-24 * sum |term|, is too
+    wide for these sums: at F = 20,000 it would pass a dropped field
+    chunk. For sums too long for the fixed 1e-5 relative + 1e-4 absolute
+    (R = 4096, F = 20,000)."""
+    exact = terms.double().sum(-1)
+    n = terms.shape[-1]
+    tol = n ** 0.5 * 2.0 ** -24 * terms.double().abs().sum(-1) \
+        + 2.0 ** -23 * exact.abs()
+    return float(((got.double() - exact).abs() - tol).max())
+
+
+def _assert_fp32_sum(got, terms):
+    excess = _fp32_sum_excess(got, terms)
+    assert excess <= 0, excess
 
 pytestmark = pytest.mark.cuda
 
@@ -208,6 +233,77 @@ def test_gather_scores_wrapper_rejects_what_the_kernel_does_not_take():
                       torch.zeros(5000, device="cuda"))
 
 
+def _tail_ids(T, U, block, step):
+    """The ids of list-walk block ``step`` for every lane, as the ``bta``
+    tail enumerates them: each list's order at the block's depths, walked
+    backwards where the lane's weight is negative, so a column holds at
+    most two distinct ids across the lanes."""
+    M, R = T.shape
+    order = torch.argsort(-T, dim=0, stable=True).t().contiguous()   # [R, M]
+    cols = torch.clamp(step * block + torch.arange(block, device=T.device),
+                       max=M - 1)
+    cols = torch.where((U < 0)[:, :, None], M - 1 - cols, cols)
+    flat = torch.arange(R, device=T.device)[None, :, None] * M + cols
+    return order.reshape(-1)[flat].reshape(U.shape[0], R * block) \
+        .to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("path", [None, "rows", "lanes"])
+def test_gather_scores_kernel_on_tail_pattern_ids(path):
+    """64 lanes over a tail block's ids (two ids a column), by the chosen
+    path and by each path forced; a NaN id among valid ids of one column
+    scores NaN for its own lane only."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    T = torch.from_numpy(rng.standard_normal((5000, 100)).astype(
+        np.float32)).cuda()
+    U = torch.from_numpy(rng.standard_normal((64, 100)).astype(
+        np.float32)).cuda()
+    ids = _tail_ids(T, U, 64, 3)
+    per_col = torch.tensor([len(set(ids[:, c].tolist()))
+                            for c in range(0, ids.shape[1], 97)])
+    assert int(per_col.max()) == 2
+    _assert_b4(gather_scores(T, ids, U, path), gather_scores_plain(T, ids, U))
+    bad = ids.clone()
+    bad[5, 7], bad[9, 7], bad[40, 7] = -1, 5000, 2 ** 31 - 1
+    got = gather_scores(T, bad, U, path)
+    torch.cuda.synchronize()
+    nan = torch.isnan(got)
+    assert nan[[5, 9, 40], 7].all() and int(nan.sum()) == 3
+    _assert_b4(got, gather_scores_plain(T, bad, U))
+
+
+@pytest.mark.parametrize("r", [10, 17, 50, 100, 4096])
+@pytest.mark.parametrize("b", [1, FEW_LANES - 1, FEW_LANES, 100, 300])
+def test_gather_scores_kernel_paths_by_lanes_and_rank(b, r):
+    """B = 1, just below and at the few-lanes threshold, and more lanes
+    than one lane group; every rank of the vector-load cases and R =
+    4096 (a few lanes a group). Both paths, forced, agree too."""
+    _need_card()
+    b = max(b, 1)
+    rng = np.random.default_rng(b * 7 + r)
+    m, c = (300, 300) if r == 4096 else (3000, 1000)
+    T = torch.from_numpy(rng.standard_normal((m, r)).astype(
+        np.float32)).cuda()
+    U = torch.from_numpy(rng.standard_normal((b, r)).astype(
+        np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(0, m, (b, c)).astype(np.int32))
+    ids[:, :3] = 0                      # repeats within and across lanes
+    ids = ids.cuda()
+    want = gather_scores_plain(T, ids, U)
+    assert launch_plan(b, c, r).path == ("rows" if b < FEW_LANES
+                                         else "lanes")
+    before = gather_scores.launches
+    for path in (None, "rows", "lanes"):
+        got = gather_scores(T, ids, U, path)
+        torch.cuda.synchronize()
+        if r <= 200:
+            _assert_b4(got, want)
+        else:          # 4,096 products: the fp32 bound of any order
+            _assert_fp32_sum(got, T[ids.long()] * U[:, None, :])
+    assert gather_scores.launches == before + 3
+
+
 def _assert_recsys(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
     if got.dtype == torch.float32:
@@ -252,6 +348,55 @@ def test_embedding_bag_kernel_ids_follow_jnp_take():
         assert torch.isnan(out[2:]).all() and torch.isfinite(out[:2]).all()
         _assert_recsys(out, embedding_bag_plain(table, ids, mode))
     _assert_recsys(embedding_bag(table, ids)[0], table[[3, 39, 39]].sum(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("d", [1, 10, 16])
+@pytest.mark.parametrize("f", [1, 39, 100])
+@pytest.mark.parametrize("b", [1000, 70001])
+def test_embedding_bag_kernel_block_runs_and_field_chunks(b, f, d, dtype):
+    """Bag counts that are no multiple of a warp's 32 (the d = 1 path), one
+    field, DeepFM's 39 and 100 (two and five field chunks at d = 1), d =
+    10 and 16 (a thread per output), with ids following jnp.take (some in
+    [-V, 0)) and one bag made NaN by an id past the table's end."""
+    _need_card()
+    v = 5000
+    rng = np.random.default_rng(b + f + d)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    table = table.to(dtype).cuda()
+    ids = rng.integers(-v, v, (b, f)).astype(np.int32)
+    ids[b // 2, f - 1] = v
+    ids = torch.from_numpy(ids).cuda()
+    for mode in ("sum", "mean"):
+        got = embedding_bag(table, ids, mode)
+        torch.cuda.synchronize()
+        nan = torch.isnan(got.float()).any(1)
+        assert bool(nan[b // 2]) and int(nan.sum()) == 1
+        _assert_recsys(got, embedding_bag_plain(table, ids, mode))
+
+
+def test_embedding_bag_kernel_chunks_many_fields_at_d1():
+    """F far past what a warp's ids buffer holds: many field chunks at
+    d = 1 (869 full ones and a short tail), held to the fp32 tolerance of
+    a 20,000-term sum, which a sum without its first chunk or without its
+    tail fails."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    table = torch.randn((3000, 1), device="cuda")
+    ids = torch.from_numpy(rng.integers(0, 3000, (300, 20000)).astype(
+        np.int32)).cuda()
+    terms = table[ids.long(), 0]                          # [B, F]
+    fc = bag_plan(300, 20000, 1).fields
+    assert 1 < fc < 20000 and 20000 % fc
+    exact = terms.double().sum(-1)
+    for dropped in (terms[:, :fc], terms[:, 20000 - 20000 % fc:]):
+        assert _fp32_sum_excess(exact - dropped.double().sum(-1), terms) > 0
+    got = embedding_bag(table, ids, "sum")
+    torch.cuda.synchronize()
+    _assert_fp32_sum(got[:, 0], terms)
+    got = embedding_bag(table, ids, "mean")
+    torch.cuda.synchronize()
+    _assert_fp32_sum(got[:, 0].double() * 20000, terms)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])

@@ -19,7 +19,10 @@ from repro.kernels.ref import embedding_bag_ref as ref_bag
 from repro.models.embedding import embedding_bag as ref_ragged_bag
 from repro.models.embedding import embedding_lookup as ref_lookup
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+from repro_torch.kernels.embedding_bag import (SMEM_WORDS, WARPS,
+                                               embedding_bag,
+                                               embedding_bag_plain,
+                                               launch_plan)
 from repro_torch.kernels.ref import embedding_bag_ref
 from repro_torch.models.embedding import embedding_bag as ragged_bag
 from repro_torch.models.embedding import embedding_lookup
@@ -131,3 +134,26 @@ def test_ragged_bag_rejects_an_unknown_mode():
     with pytest.raises(ValueError, match="unknown mode"):
         ragged_bag(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32),
                    torch.zeros(3, dtype=torch.int32), 2, mode="min")
+
+
+@pytest.mark.parametrize("b,f,d", [
+    (262144, 39, 1), (262144, 39, 10),    # serve_bulk's two calls
+    (512, 39, 1), (512, 39, 10),          # serve_p99's
+    (33, 7, 64), (5, 0, 3), (3, 5, 300), (7, 20000, 1), (1000, 38, 16),
+])
+def test_launch_plan(b, f, d):
+    """The path by d; on the bags path, a block's 8 warps x 2 buffers of
+    odd-length rows fit SMEM_WORDS, a chunk takes every field where they
+    fit, and 32-bag tasks cover the batch; on the cols path, a thread per
+    output."""
+    plan = launch_plan(b, f, d)
+    if d != 1 or f == 0:
+        assert plan.path == "cols" and plan.smem == 0
+        assert plan.tasks * 256 >= b * d > (plan.tasks - 1) * 256
+        return
+    FC = plan.fields
+    assert plan.path == "bags" and 1 <= FC <= f
+    assert plan.buf_words >= 32 * (FC | 1) + 3 and plan.buf_words % 4 == 0
+    assert plan.smem == 4 * 2 * WARPS * plan.buf_words <= 4 * SMEM_WORDS
+    assert FC == f or 32 * ((FC + 1) | 1) + 6 > SMEM_WORDS // (2 * WARPS)
+    assert plan.tasks == -(-b // 32)
