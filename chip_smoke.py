@@ -18,7 +18,7 @@ checkout. In order, it
    (fewer real rows than k; all scores negative), and times the kernel,
    each of its two phases alone (with its scratch bytes), its plain
    version and, on both catalogues, ``torch.matmul`` + ``torch.topk``;
-4. holds ``gather_scores`` (kernel B4, the ``bta`` engine's tail scorer)
+4. holds ``gather_scores`` (kernel B4, the list engines' tail scorer)
    against its plain version at the tail's shape (B = 64 lanes, the
    25,600 ids of the first post-prefix block of an LSHTC-like list walk,
    repeats included: the lane path), at the bookcrossing-like R = 50, on
@@ -43,7 +43,19 @@ checkout. In order, it
    LSHTC-like run, and that the same engine on the CPU (the kernels'
    plain versions) gives the first 4 LSHTC-like queries the same values,
    ids, ``n_scored`` and ``depth``;
-7. the recsys serving path at DeepFM's full published width (39 fields,
+7. drives the ``ta`` path (the paper's Threshold Algorithm, 32 rounds a
+   step) — ``TopKServer.query(method="ta")`` over the same three batches,
+   then one LSHTC-like batch halted by a budget of 4,100 rounds (inside a
+   chunk, past the prefix) — with the counters set to 0 just before and
+   read just after; checks that ``ta`` agrees with ``naive``, that its
+   LSHTC-like tail launched ``gather_scores`` once a tail or gather step,
+   that ``ta`` on the CPU gives the first 4 LSHTC-like queries the same
+   values, ids, ``n_scored`` and ``depth``, exact and halted, and that no
+   halted depth passes the budget; holds ``gather_scores`` against its
+   plain version at ``ta``'s first LSHTC-like tail block (64 x 3,200 ids),
+   timed as in 4; prints ``ta``'s latency and scored share beside
+   ``bta``'s and profiles one whole ``ta`` chunk (device activity only);
+8. the recsys serving path at DeepFM's full published width (39 fields,
    embed 10, 1,000,000 ids a field, MLP 400-400-400; random weights from
    a seeded generator on the card): holds ``embedding_bag`` (kernel B5;
    sum and mean, float32 and float16, d = 10 and d = 1) and
@@ -59,7 +71,7 @@ checkout. In order, it
    tail on B4) and ``TwoStageRanker``'s full-model re-rank to the top 5,
    counted, and holds B4 against its plain version on the retrieval's
    first tail block (R = 10, ids ``[64, 2,560]``), timed;
-8. prints one ``{"kernels": [...]}`` line and, last, the device line
+9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -101,6 +113,9 @@ MODE_OF = {"topk_mips": "two_level_batched", "query": "two_level_tile",
            "prescreen_off": "single_level"}
 KERNELS = ("topk_mips", "gather_scores", "embedding_bag", "fm_interaction")
 N_CPU_CHECK = 4
+# the ta phase's halted batch: a budget in rounds past the 2,048-round
+# list prefix that stops inside a 32-round chunk
+TA_BUDGET = 4100
 # lane counts of B4's path sweep
 SWEEP_LANES = (1, 2, 3, 4, 5, 6, 8, 16, 32, 64)
 # Scores from two fp32 summation orders over R <= 100 products differ by a
@@ -388,25 +403,32 @@ def path_sweep(T, ids, U) -> dict:
     return out
 
 
-def profile_call(label: str, fn, kernels: dict) -> None:
+def profile_call(label: str, fn, kernels: dict, cpu: bool = True) -> None:
     """Device time by kernel over one call of ``fn`` (``torch.profiler``),
     the device's busy share of the call's wall time, and the launches and
     share of each kernel in ``kernels`` (printed name -> a substring of
-    its CUDA kernel's name). Measurement only: a profiler that records no
-    device time says so."""
+    its CUDA kernel's name). ``cpu=False`` records device activity only,
+    for a call of thousands of loop steps whose host-side operator events
+    would take minutes to post-process. Measurement only: a profiler that
+    records no device time says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
     # kernels only: an operator's row repeats its kernels' device time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
+    print(f"  profile of {label}: post-processed in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     busy_us = sum(e.self_device_time_total for e in events)
     if not events:
         print("  profile: the profiler recorded no device time", flush=True)
@@ -587,7 +609,7 @@ def compare_recsys_kernels(params, ids_by_cell):
 
 
 def recsys_path(dev):
-    """Step 7 of the module docstring. Returns the kernels line's rows of
+    """Step 8 of the module docstring. Returns the kernels line's rows of
     B5 (one for each of its two calls on the path), B6 and B4 on the
     retrieval's tail block."""
     import numpy as np
@@ -817,6 +839,129 @@ def recsys_path(dev):
     ]
 
 
+def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
+    """Step 7 of the module docstring. ``results`` holds the ``naive``
+    results of the served batches, ``bta_depth`` the LSHTC-like ``bta``
+    depths, ``cpu_ctx`` the LSHTC-like catalogue on the CPU. Returns the
+    kernels line's row of B4 at ``ta``'s tail block."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import EngineContext, get_engine
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    lsh, bc = (c[0] for c in CATALOGUES)
+    runs = [(lsh, U_all[lsh], "mixed", None), (bc, U_all[bc], "mixed", None),
+            (bc, np.abs(U_all[bc]), "nonneg", None),
+            (lsh, U_all[lsh][:BATCH], "halted", TA_BUDGET)]
+    steps, lat, res = {}, {}, {}
+    torch.cuda.synchronize()
+    topk_mips.launches = gather_scores.launches = 0
+    gather_scores.path_launches = dict.fromkeys(gather_scores.path_launches,
+                                                0)
+    for srv in servers.values():
+        srv.ctx.scan_steps.clear()
+    t0 = time.perf_counter()
+    for name, U, label, budget in runs:
+        srv = servers[name]
+        before = dict(srv.ctx.scan_steps)
+        ring = srv.stats["ta"].lat_us_ring if "ta" in srv.stats else ()
+        n_lat = len(ring)
+        res[label, name] = srv.query(U, K, method="ta", budget=budget)
+        steps[label, name] = {key: n - before.get(key, 0)
+                              for key, n in srv.ctx.scan_steps.items()}
+        lat[label, name] = list(srv.stats["ta"].lat_us_ring)[n_lat:]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gather_scores.launches
+    path_launches = dict(gather_scores.path_launches)
+    lsh_tail = steps["mixed", lsh].get("tail", 0)
+    check(launches > 0 and lsh_tail > 0,
+          f"the LSHTC-like ta run launched gather_scores {launches} times "
+          f"in {lsh_tail} tail steps: its tail did not run")
+    check(launches == sum(st.get("tail", 0) + st.get("gather", 0)
+                          for st in steps.values()),
+          "gather_scores launches differ from the ta tail and gather steps")
+    check(topk_mips.launches == 0, "the ta path launched topk_mips")
+
+    for label, name, naive in (("mixed", lsh, results[lsh, "naive"]),
+                               ("mixed", bc, results[bc, "naive"]),
+                               ("nonneg", bc, results[bc, "naive",
+                                                      "nonneg"])):
+        got = res[label, name]
+        check(np.allclose(got.values, naive.values, rtol=RTOL, atol=ATOL)
+              and ids_agree(torch.from_numpy(naive.values),
+                            torch.from_numpy(naive.indices),
+                            torch.from_numpy(got.values),
+                            torch.from_numpy(got.indices)),
+              f"{name}: ta differs from naive ({label} batch)")
+    halted = res["halted", lsh]
+    check(int(halted.depth.max()) <= TA_BUDGET,
+          f"a halted ta depth {int(halted.depth.max())} passes the budget "
+          f"{TA_BUDGET}")
+    check(bool((halted.depth == TA_BUDGET).any()),
+          f"no LSHTC-like ta query ran to the budget {TA_BUDGET}")
+
+    # ta on the CPU (the kernels' plain versions): the first queries,
+    # exact and halted
+    n = N_CPU_CHECK
+    for label, budget in (("mixed", None), ("halted", TA_BUDGET)):
+        t0 = time.perf_counter()
+        cpu = get_engine("ta").run(cpu_ctx, U_all[lsh][:n], K, budget=budget)
+        cpu_s = time.perf_counter() - t0
+        card = res[label, lsh]
+        check(np.allclose(card.values[:n], cpu.values.numpy(), rtol=RTOL,
+                          atol=ATOL)
+              and ids_agree(cpu.values, cpu.indices,
+                            torch.from_numpy(card.values[:n]),
+                            torch.from_numpy(card.indices[:n])),
+              f"{lsh}: ta ({label}) on the card differs from the CPU")
+        for field in ("n_scored", "depth"):
+            check(np.array_equal(getattr(card, field)[:n],
+                                 getattr(cpu, field).numpy()),
+                  f"{lsh}: ta ({label}) {field} on the card "
+                  f"{getattr(card, field)[:n].tolist()} != on the CPU "
+                  f"{getattr(cpu, field).tolist()}")
+        print(f"ta ({label}) on the CPU, first {n} {lsh} queries: equal "
+              f"values, ids, n_scored {cpu.n_scored.tolist()} and depth "
+              f"{cpu.depth.tolist()} ({cpu_s:.1f} s)", flush=True)
+
+    for label, name in steps:
+        got = res[label, name]
+        m = servers[name].ctx.num_targets
+        st = steps[label, name]
+        chunks = -(-got.depth.shape[0] // BATCH)
+        print(f"  {name:>18s} ta ({label}): {np.mean(lat[label, name]):10.1f}"
+              f" us/query (p50 {np.median(lat[label, name]):.1f})  scored "
+              f"share {got.n_scored.mean() / m:8.4%} of M  depth mean "
+              f"{got.depth.mean():.1f} max {got.depth.max()}  steps per "
+              f"chunk {sum(st.values()) / chunks:.2f} (prefix "
+              f"{st.get('prefix', 0) / chunks:.2f}, tail "
+              f"{st.get('tail', 0) / chunks:.2f}, gather "
+              f"{st.get('gather', 0) / chunks:.2f})", flush=True)
+    depth = res["mixed", lsh].depth
+    print(f"ta path: gather_scores launches={launches} (by path "
+          f"{path_launches}) in {seconds:.1f} s; {lsh} queries whose ta "
+          f"depth <= their bta depth: {np.mean(depth <= bta_depth):.2%} "
+          f"(ta depth mean {depth.mean():.1f}, bta {bta_depth.mean():.1f})",
+          flush=True)
+    profile_call(f"one {BATCH}-query {lsh} ta chunk (device activity "
+                 f"only)",
+                 lambda: servers[lsh].query(U_all[lsh][:BATCH], K,
+                                            method="ta"),
+                 {"B4 gather_scores_*_kernel": "gather_scores_"}, cpu=False)
+
+    # kernel B4 at ta's first LSHTC-like tail block, after the counted run
+    ctx = servers[lsh].ctx
+    U = torch.from_numpy(U_all[lsh][:BATCH]).to(ctx.device)
+    chunk = ctx.ta_chunk
+    ids = tail_ids(ctx.index, U, chunk,
+                   ctx.layout("list_major").prefix_steps(chunk))
+    label = f"{lsh} ta tail block"
+    rec = compare_gather([(label, ctx.targets, ids, U, True)])[label]
+    return b4_row("gather_scores[ta tail]", rec, path_launches["lanes"],
+                  rec["max_abs_err"])
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
@@ -867,11 +1012,17 @@ def run(dev, kind: str) -> None:
         model = random_model(rng, m, r, dist, sparsity, name=name,
                              device=dev)
         U_all[name] = queries(rng, N_QUERIES, r, dist)
-        servers[name] = TopKServer(model, max_batch=BATCH,
-                                   device=dev).warmup(K)
+        srv = servers[name] = TopKServer(model, max_batch=BATCH, device=dev)
+        # the default warmup (every engine), ta's share timed on its own
+        srv.warmup(K, engines=[e for e in srv.available_engines()
+                               if e != "ta"])
+        torch.cuda.synchronize()
+        t_ta = time.perf_counter()
+        srv.warmup(K, engines=["ta"])
         torch.cuda.synchronize()
         print(f"{name}: M={m} R={r} built and warmed in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{time.perf_counter() - t0:.1f} s, of it ta's warmup "
+              f"{time.perf_counter() - t_ta:.1f} s", flush=True)
 
     # -- the kernel against its plain version on the card ---------------------
     compare, library_ms = {}, {}
@@ -1011,7 +1162,8 @@ def run(dev, kind: str) -> None:
 
     # bta: agreement with naive on the non-negative batch, then the same
     # engine on the CPU for the first LSHTC-like queries
-    nn_naive = servers[bc].query(U_nonneg, K, method="naive")
+    nn_naive = results[bc, "naive", "nonneg"] = servers[bc].query(
+        U_nonneg, K, method="naive")
     nn = results[bc, "bta", "nonneg"]
     check(np.allclose(nn.values, nn_naive.values, rtol=RTOL, atol=ATOL)
           and ids_agree(torch.from_numpy(nn_naive.values),
@@ -1065,6 +1217,9 @@ def run(dev, kind: str) -> None:
                  lambda: servers[lsh].query(U_all[lsh][:BATCH], K),
                  {"B4 gather_scores_*_kernel": "gather_scores_"})
 
+    # -- the ta path, counted -------------------------------------------------
+    ta_row = ta_path(servers, U_all, results, card.depth, cpu_ctx)
+
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
 
@@ -1088,7 +1243,8 @@ def run(dev, kind: str) -> None:
                bta_path_launches["lanes"], b4_err),
         b4_row("gather_scores[few lanes]",
                compare_b4[f"first {n_few} lanes"],
-               bta_path_launches["rows"], b4_err)]
+               bta_path_launches["rows"], b4_err),
+        ta_row]
     kernels["kernels"].extend(recsys_path(dev))
     for row in kernels["kernels"]:
         check(row["launches"] > 0,

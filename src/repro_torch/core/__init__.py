@@ -11,6 +11,8 @@ listed in ``tests/test_torch_core_api.py``.
 from repro_torch.core.blocked import (
     blocked_topk,
     blocked_topk_batched,
+    chunked_ta_topk,
+    chunked_ta_topk_batched,
     norm_pruned_topk,
 )
 from repro_torch.core.driver import merge_topk_sorted
@@ -46,12 +48,16 @@ from repro_torch.core.seplr import (
     random_model,
 )
 from repro_torch.core.strategies import rank_gather_first_keys
-from repro_torch.core.threshold import TAStats, threshold_topk_np
+from repro_torch.core.threshold import (TAStats, threshold_topk,
+                                       threshold_topk_from_index,
+                                       threshold_topk_np)
 
 __all__ = [
     "SepLRModel", "TopKIndex", "TopKResult", "TAStats", "build_index",
-    "naive_topk", "threshold_topk_np", "blocked_topk",
-    "blocked_topk_batched", "norm_pruned_topk", "from_cosine_similarity",
+    "naive_topk", "threshold_topk", "threshold_topk_from_index",
+    "threshold_topk_np", "blocked_topk", "blocked_topk_batched",
+    "chunked_ta_topk", "chunked_ta_topk_batched", "norm_pruned_topk",
+    "from_cosine_similarity",
     "from_matrix_factorization", "from_linear_multilabel",
     "from_pairwise_kronecker", "kronecker_query", "normalize_query",
     "random_model",

@@ -20,6 +20,13 @@ one loop over the lanes still live, each at its own cursor, gated on its
 own bound and step cap; its results and ``n_scored``/``depth``/``upper``
 equal the reference's vmapped per-lane tail lane for lane.
 
+**Chunked TA** (the ``ta`` engine, :func:`chunked_ta_topk*`) runs the
+same two phases with ``chunk`` depths a step, each its own paper round:
+the driver's :func:`repro_torch.core.driver.replay_rounds` recovers the
+sequential rounds from each scored block, in the prefix and in the tail
+alike, so ``n_scored`` and ``depth`` (in rounds) equal the item-at-a-time
+algorithm's while the work stays block-shaped.
+
 The loops read one boolean back to the host per step (``any lane
 live``); callers may pass a :class:`collections.Counter` as ``steps`` to
 count them (``"prefix"``, ``"tail"`` and ``"gather"`` iterations).
@@ -41,7 +48,8 @@ import torch
 from repro_torch.core.driver import (BatchedScanState, NEG_INF,
                                      batched_pruned_scan,
                                      initial_batched_state,
-                                     merge_block_into_carry_batched)
+                                     merge_block_into_carry_batched,
+                                     replay_rounds)
 from repro_torch.core.index import TopKIndex
 from repro_torch.core.naive import TopKResult
 from repro_torch.core.strategies import (batched_list_prefix_strategy,
@@ -60,7 +68,8 @@ def _count(steps: Optional[collections.Counter], key: str, n: int) -> None:
 
 
 def _batched_list_tail(targets, order_desc, t_sorted_desc, rank_by_item, U,
-                       k, block_size, max_blocks, state: BatchedScanState):
+                       k, block_size, max_blocks, state: BatchedScanState,
+                       ta_rounds: bool = False, max_rounds: int = -1):
     """The gather-side list scan of a batch, resumed from ``state``: ONE
     loop whose every step serves the lanes still live.
 
@@ -74,13 +83,24 @@ def _batched_list_tail(targets, order_desc, t_sorted_desc, rank_by_item, U,
     scores the ``[L, C]`` ids of all ``L`` live lanes against their
     queries, and the Eq. 3 bound is taken at the block's last depth,
     still valid for every unseen item because the lists are monotone.
-    Only the live lanes are gathered. Returns the result (``depth`` in
-    blocks) and the loop's iteration count.
+    Only the live lanes are gathered.
+
+    ``ta_rounds`` with ``block_size > 1`` is chunked TA: a step takes the
+    live lanes' Eq. 3 bounds at every depth of the block and replays its
+    ``block_size`` rounds (:func:`repro_torch.core.driver.replay_rounds`,
+    the prefix driver's own), each lane from its own cursor; ``max_rounds``
+    is the budget in rounds. Returns the result (``depth`` in list-depth
+    rows, which are rounds in chunked mode) and the loop's iteration
+    count.
     """
     R, M = order_desc.shape
     dev = U.device
+    chunked = ta_rounds and block_size > 1
     n_steps = _cdiv(M, block_size)
     cap = n_steps if max_blocks < 0 else min(max_blocks, n_steps)
+    round_cap = M if max_rounds < 0 else min(max_rounds, M)
+    if chunked:
+        cap = min(cap, _cdiv(round_cap, block_size))
     C = R * block_size
     neg = U < 0
     active_rep = (U != 0).repeat_interleave(block_size, dim=1)    # [B, C]
@@ -92,7 +112,7 @@ def _batched_list_tail(targets, order_desc, t_sorted_desc, rank_by_item, U,
     t_flat = t_sorted_desc.reshape(-1)
     cursor = state.steps.clone()
     top_vals, top_ids = state.top_vals.clone(), state.top_ids.clone()
-    n_scored = state.n_scored.clone()
+    n_scored, rounds = state.n_scored.clone(), state.rounds.clone()
     lower, upper = state.lower.clone(), state.upper.clone()
     iters = 0
     while True:
@@ -112,44 +132,74 @@ def _batched_list_tail(targets, order_desc, t_sorted_desc, rank_by_item, U,
         fresh = (active_rep[lanes]
                  & (rank_gather_first_keys(rank_by_item, u, ids)
                     == d * R + slot_r) & (d < M))
-        new_vals, new_ids = merge_block_into_carry_batched(
-            top_vals[lanes], top_ids[lanes],
-            torch.where(fresh, scores, NEG_INF), ids, k)
-        end = torch.clamp(d0 + block_size - 1, max=M - 1)          # [L]
-        end_eff = torch.where(lneg, M - 1 - end[:, None], end[:, None])
-        bound = torch.sum(u * t_flat[list_base + end_eff], dim=1)  # [L]
+        if chunked:
+            # Eq. 3 at every depth of the block (the same clamped columns)
+            t_at = t_flat[list_base[None, :, None] + cols_eff]     # [L, R, Bk]
+            rep = replay_rounds(
+                top_vals[lanes], top_ids[lanes], upper[lanes], ids, scores,
+                fresh, (u[:, :, None] * t_at).sum(1), d0, round_cap, k)
+            new_vals, new_ids, bound = rep.top_vals, rep.top_ids, rep.upper
+            n_scored[lanes] += rep.n_scored
+            rounds[lanes] += rep.processed
+        else:
+            new_vals, new_ids = merge_block_into_carry_batched(
+                top_vals[lanes], top_ids[lanes],
+                torch.where(fresh, scores, NEG_INF), ids, k)
+            end = torch.clamp(d0 + block_size - 1, max=M - 1)      # [L]
+            end_eff = torch.where(lneg, M - 1 - end[:, None], end[:, None])
+            bound = torch.sum(u * t_flat[list_base + end_eff], dim=1)
+            n_scored[lanes] += fresh.sum(1).to(torch.int32)
         top_vals[lanes] = new_vals
         top_ids[lanes] = new_ids
-        n_scored[lanes] += fresh.sum(1).to(torch.int32)
         cursor[lanes] += 1
         lower[lanes] = new_vals[:, k - 1]
         upper[lanes] = bound
-    # certificate tightening, per lane: every block consumed -> -inf
-    upper = torch.where(cursor >= n_steps, NEG_INF, upper)
-    return TopKResult(top_vals, top_ids, n_scored, cursor, upper=upper), iters
+    # certificate tightening, per lane: every block (every round)
+    # consumed -> -inf
+    if chunked:
+        depth, exhausted = rounds, rounds >= M
+    else:
+        depth, exhausted = cursor * block_size, cursor >= n_steps
+    upper = torch.where(exhausted, NEG_INF, upper)
+    return TopKResult(top_vals, top_ids, n_scored, depth, upper=upper), iters
 
 
 def _batched_two_phase_list_scan(targets, order_desc, t_sorted_desc, U, k,
                                  block_size, max_blocks, layout, sign, dense,
-                                 steps=None) -> TopKResult:
+                                 steps=None, ta_rounds: bool = False,
+                                 max_rounds: int = -1) -> TopKResult:
     """Batch-native prefix phase chained into the batched gather tail.
 
     Phase 1 is :func:`repro_torch.core.driver.batched_pruned_scan` over
     :func:`repro_torch.core.strategies.batched_list_prefix_strategy`; its
-    final state (per-lane absolute cursors in ``steps``) seeds
-    :func:`_batched_list_tail`. A batch whose every query certified inside
-    the prefix runs no tail step.
+    final state (per-lane absolute cursors in ``steps``, rounds in
+    ``rounds``) seeds :func:`_batched_list_tail`. A batch whose every
+    query certified inside the prefix runs no tail step. ``depth`` is in
+    list-depth rows (rounds).
     """
     prefix = batched_list_prefix_strategy(layout, t_sorted_desc, U,
-                                          block_size, sign=sign, dense=dense)
+                                          block_size, sign=sign, dense=dense,
+                                          ta_rounds=ta_rounds)
     _, bstate = batched_pruned_scan(U, prefix, k, targets.dtype,
-                                    max_steps=max_blocks, return_state=True)
+                                    max_steps=max_blocks,
+                                    max_rounds=max_rounds, return_state=True)
     res, iters = _batched_list_tail(targets, order_desc, t_sorted_desc,
                                     layout.rank_by_item, U, k, block_size,
-                                    max_blocks, bstate)
+                                    max_blocks, bstate, ta_rounds=ta_rounds,
+                                    max_rounds=max_rounds)
     _count(steps, "prefix", bstate.step)
     _count(steps, "tail", iters)
     return res
+
+
+def _check_native(name, layout, block_size, sign):
+    if layout is None or layout.prefix_steps(block_size) < 1:
+        raise ValueError(f"{name} requires a ListMajorLayout with >= 1 "
+                         "prefix block")
+    if not layout.serves_sign(sign):
+        raise ValueError(
+            f"layout with sides {layout.sides!r} cannot serve sign "
+            f"bucket {sign} (mixed batches need both directions)")
 
 
 def blocked_topk_batched_native(
@@ -175,31 +225,26 @@ def blocked_topk_batched_native(
     guarantees they match ``U`` and that ``layout`` has the needed
     side(s). ``depth`` is in list-depth rows.
     """
-    if layout is None or layout.prefix_steps(block_size) < 1:
-        raise ValueError("blocked_topk_batched_native requires a "
-                         "ListMajorLayout with >= 1 prefix block")
-    if not layout.serves_sign(sign):
-        raise ValueError(
-            f"layout with sides {layout.sides!r} cannot serve sign "
-            f"bucket {sign} (mixed batches need both directions)")
+    _check_native("blocked_topk_batched_native", layout, block_size, sign)
     k = min(int(k), targets.shape[0])
-    res = _batched_two_phase_list_scan(
+    return _batched_two_phase_list_scan(
         targets, order_desc, t_sorted_desc, U, k, block_size, max_blocks,
         layout, sign, dense, steps=steps)
-    return res._replace(depth=res.depth * block_size)
 
 
 def _gather_topk(targets, order_desc, t_sorted_desc, rank_by_item, U, k,
-                 block_size, max_blocks, steps) -> TopKResult:
+                 block_size, max_blocks, steps, ta_rounds: bool = False,
+                 max_rounds: int = -1) -> TopKResult:
     """The gather path: the batched gather loop from step 0 (``depth`` in
-    list-depth rows)."""
+    list-depth rows, which are rounds for chunked TA)."""
     k = min(int(k), targets.shape[0])
     state = initial_batched_state(U.shape[0], k, targets.dtype, U.device)
     res, iters = _batched_list_tail(targets, order_desc, t_sorted_desc,
                                     rank_by_item, U, k, block_size,
-                                    max_blocks, state)
+                                    max_blocks, state, ta_rounds=ta_rounds,
+                                    max_rounds=max_rounds)
     _count(steps, "gather", iters)
-    return res._replace(depth=res.depth * block_size)
+    return res
 
 
 def _rank_by_item(order_desc: torch.Tensor) -> torch.Tensor:
@@ -266,6 +311,109 @@ def blocked_topk_batched(
     return _gather_topk(targets, index.order_desc, index.t_sorted_desc,
                         index.rank_desc.T, U, k, block_size, max_blocks,
                         steps)
+
+
+# ---------------------------------------------------------------------------
+# Chunked TA: block-shaped steps, item-at-a-time accounting
+# ---------------------------------------------------------------------------
+
+
+def chunked_ta_topk_batched_native(
+    targets: torch.Tensor,
+    order_desc: torch.Tensor,
+    t_sorted_desc: torch.Tensor,
+    U: torch.Tensor,
+    k: int,
+    chunk: int = 32,
+    max_rounds: int = -1,
+    layout=None,
+    sign: int = 0,
+    dense: bool = False,
+    steps: Optional[collections.Counter] = None,
+) -> TopKResult:
+    """Batch-native chunked TA over the list-prefix layout.
+
+    The shared prefix tiles feed the driver's replay of each chunk's
+    sequential rounds, lane by lane, and the batched gather tail replays
+    its chunks with the same function, so each query's ``n_scored`` and
+    ``depth`` (in rounds) equal the item-at-a-time algorithm's
+    (:func:`repro_torch.core.threshold.threshold_topk_np`).
+    ``sign``/``dense`` are the batch's sign bucket, as in
+    :func:`blocked_topk_batched_native`. ``max_rounds`` is the halted
+    TA's budget, held at round granularity even in mid-chunk; at
+    ``chunk == 1`` a step is one round and the budget caps the steps.
+    """
+    _check_native("chunked_ta_topk_batched_native", layout, chunk, sign)
+    k = min(int(k), targets.shape[0])
+    return _batched_two_phase_list_scan(
+        targets, order_desc, t_sorted_desc, U, k, chunk,
+        max_rounds if chunk == 1 else -1, layout, sign, dense, steps=steps,
+        ta_rounds=chunk > 1, max_rounds=max_rounds)
+
+
+def _chunked_ta_gather(targets, order_desc, t_sorted_desc, rank_by_item, U,
+                       k, chunk, max_rounds, steps) -> TopKResult:
+    """Chunked TA by the gather path, from round 0; at ``chunk == 1`` the
+    plain single-round blocks, the budget capping the steps."""
+    return _gather_topk(targets, order_desc, t_sorted_desc, rank_by_item, U,
+                        k, chunk, max_rounds if chunk == 1 else -1, steps,
+                        ta_rounds=chunk > 1, max_rounds=max_rounds)
+
+
+def chunked_ta_topk(
+    targets: torch.Tensor,
+    order_desc: torch.Tensor,
+    t_sorted_desc: torch.Tensor,
+    rank_desc: Optional[torch.Tensor],
+    u: torch.Tensor,
+    k: int,
+    chunk: int = 32,
+    max_rounds: int = -1,
+    layout=None,
+) -> TopKResult:
+    """Exact TA of one query ``u: [R]`` whose rounds are processed
+    ``chunk`` at a time: the batch of one of the batched drivers.
+
+    One step gathers and scores ``R * chunk`` candidates, then replays the
+    chunk as ``chunk`` sequential paper rounds, so ``n_scored`` and
+    ``depth`` (in rounds) equal the ``chunk = 1`` algorithm's and
+    :func:`repro_torch.core.threshold.threshold_topk_np`'s. ``max_rounds``
+    is the halted TA's budget, held even in mid-chunk. ``layout`` (serving
+    the query's sign) makes the rounds inside its prefix gather-free
+    (:func:`chunked_ta_topk_batched_native`); without it every chunk is
+    gathered, with freshness from ``rank_desc`` (worked out from
+    ``order_desc`` when absent).
+    """
+    U = u[None, :]
+    if layout is not None and chunk > 1 and layout.prefix_steps(chunk) > 0:
+        sign, dense = sign_bucket(U)
+        res = chunked_ta_topk_batched_native(
+            targets, order_desc, t_sorted_desc, U, k, chunk, max_rounds,
+            layout=layout, sign=sign, dense=dense)
+    else:
+        rank_by_item = (_rank_by_item(order_desc) if rank_desc is None
+                        else rank_desc.T)
+        res = _chunked_ta_gather(targets, order_desc, t_sorted_desc,
+                                 rank_by_item, U, k, chunk, max_rounds, None)
+    return TopKResult(*(x[0] for x in res))
+
+
+def chunked_ta_topk_batched(
+    targets: torch.Tensor,
+    index: TopKIndex,
+    U: torch.Tensor,
+    k: int,
+    chunk: int = 32,
+    max_rounds: int = -1,
+    steps: Optional[collections.Counter] = None,
+) -> TopKResult:
+    """Chunked TA over a query batch ``U: [B, R]`` by the gather path (no
+    list layout), freshness from the index's ``rank_desc``: each query's
+    result and counts equal its own :func:`chunked_ta_topk`, as the
+    reference's vmap of it does."""
+    return _chunked_ta_gather(targets, index.order_desc, index.t_sorted_desc,
+                              index.rank_desc.T, U, k, chunk, max_rounds,
+                              steps)
 
 
 def norm_pruned_topk_batched(

@@ -15,6 +15,10 @@ Registered engines (this slice of the port):
 name           exact  needs_index  backend  layout       algorithm
 =============  =====  ===========  =======  ===========  =====================
 ``naive``      yes    no           torch    row_major    full matmul + top-k
+``ta``         yes    yes          torch    list_major   Threshold Algorithm
+                                                         (paper Alg. 2),
+                                                         chunked; tail scored
+                                                         by kernel B4
 ``bta``        yes    yes          torch    list_major   Block Threshold
                                                          Algorithm; tail
                                                          scored by kernel B4
@@ -26,17 +30,17 @@ name           exact  needs_index  backend  layout       algorithm
 
 Every engine takes a batch (the reference's ``supports_batch`` is True
 for all of them). Aliases accepted by :func:`get_engine`:
-``blocked -> bta``, ``norm_pruned -> norm`` and ``pallas -> topk_mips``
-(the reference's name for its kernel engine).
+``threshold -> ta``, ``blocked -> bta``, ``norm_pruned -> norm`` and
+``pallas -> topk_mips`` (the reference's name for its kernel engine).
 
 PyTorch runs eagerly and the kernels take their sizes at run time, so
 there is no compile cache to key. Batches are still bucketed to powers of
 two (:func:`pad_to_bucket`) and the ``norm`` engine still pads its arrays
 to the catalogue's M-bucket, exactly as the reference, so results and
-pruning statistics match it field for field. ``bta`` runs on the real M:
-the reference pads its list arrays only so that one compiled executable
-serves every catalogue of a bucket, and its padded results equal the
-unpadded scan's. In place of the reference's trace counters,
+pruning statistics match it field for field. ``bta`` and ``ta`` run on
+the real M: the reference pads its list arrays only so that one compiled
+executable serves every catalogue of a bucket, and its padded results
+equal the unpadded scan's. In place of the reference's trace counters,
 ``topk_mips.launches`` and ``gather_scores.launches`` count the CUDA
 kernels' launches, and :attr:`EngineContext.scan_steps` counts the list
 scans' loop iterations.
@@ -56,6 +60,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.blocked import (blocked_topk_batched,
                                       blocked_topk_batched_native,
+                                      chunked_ta_topk_batched,
+                                      chunked_ta_topk_batched_native,
                                       norm_pruned_topk_batched)
 from repro_torch.core.driver import NEG_INF, pad_topk
 from repro_torch.core.index import TopKIndex, build_index
@@ -184,7 +190,9 @@ class EngineContext:
       index: optional prebuilt :class:`TopKIndex` (built lazily otherwise).
       block_size: depth/block granularity handed to blocked engines.
       max_blocks: uniform halting budget in blocks (``-1`` = run to
-        exactness).
+        exactness); rounds for ``ta``.
+      ta_chunk: TA rounds gathered and scored per step by the ``ta``
+        engine (its replay keeps the counts of one round a step).
       prefix_depth: ``list_major`` layout prefix rows per dimension.
         ``None`` (default) is ADAPTIVE — the layout turns on at
         ``DEFAULT_PREFIX_DEPTH`` once ``M >= LIST_LAYOUT_MIN_TARGETS``
@@ -200,7 +208,7 @@ class EngineContext:
 
     def __init__(self, targets, index: Optional[TopKIndex] = None,
                  block_size: int = 256, max_blocks: int = -1,
-                 prefix_depth: Optional[int] = None,
+                 ta_chunk: int = 32, prefix_depth: Optional[int] = None,
                  cost_table: Optional[CostTable] = None, device=None):
         self.device = resolve_device(device)
         self.targets = torch.as_tensor(targets, dtype=torch.float32,
@@ -208,6 +216,7 @@ class EngineContext:
         self.cost_table = cost_table
         self.block_size = block_size
         self.max_blocks = max_blocks
+        self.ta_chunk = ta_chunk
         self.prefix_depth = prefix_depth
         self.scan_steps: collections.Counter = collections.Counter()
         self._index = index
@@ -348,9 +357,9 @@ class Engine:
     exact: bool = True
     needs_index: bool = True
     #: True for engines that honour ``run(..., budget=)`` — a halting
-    #: budget in rows (norm-order rows; list depth for ``bta``), rounded
-    #: up to whole blocks, with the halted result carrying a
-    #: per-item certificate bound (``TopKResult.upper``)
+    #: budget in rows (norm-order rows; list depth for ``bta``, rounded
+    #: up to whole blocks; rounds for ``ta``), with the halted result
+    #: carrying a per-item certificate bound (``TopKResult.upper``)
     supports_budget: bool = False
     backend: str = "torch"
     layout: Optional[str] = None
@@ -370,6 +379,7 @@ class Engine:
 
 _REGISTRY: Dict[str, Engine] = {}
 _ALIASES: Dict[str, str] = {
+    "threshold": "ta",
     "blocked": "bta",
     "norm_pruned": "norm",
     "pallas": "topk_mips",
@@ -486,6 +496,39 @@ def _list_args(ctx: EngineContext, bucket: int):
             "layout": _list_layout(ctx), "m_bucket": bucket}
 
 
+def _pad_past_m(res: TopKResult, args, k: int) -> TopKResult:
+    """k past M: the slots beyond the catalogue hold (-inf, -1), as
+    naive's."""
+    vals, ids = pad_topk(res.values, res.indices,
+                         min(int(k), args["m_bucket"]))
+    return res._replace(values=vals, indices=ids)
+
+
+def _ta_run(ctx, args, U, k, budget, bcfg):
+    # chunked TA: block-shaped steps, sequential-round accounting. TA's
+    # round unit is list depth, so a budget caps rounds directly
+    chunk = ctx.ta_chunk
+    max_rounds = ctx.max_blocks
+    if budget is not None:
+        max_rounds = (int(budget) if max_rounds < 0
+                      else min(max_rounds, int(budget)))
+    T, idx, lay = args["targets"], args["index"], args["layout"]
+    kk = min(int(k), T.shape[0])
+    if bcfg and lay is not None and lay.serves_sign(bcfg[0]) \
+            and lay.prefix_steps(chunk) > 0:
+        sign, dense = bcfg
+        res = chunked_ta_topk_batched_native(
+            T, idx.order_desc, idx.t_sorted_desc, U, kk, chunk=chunk,
+            max_rounds=max_rounds, layout=lay, sign=sign, dense=dense,
+            steps=ctx.scan_steps)
+    else:
+        # a single-sided layout cannot serve the other sign buckets, and
+        # a prefix shorter than one chunk none: the gather path
+        res = chunked_ta_topk_batched(T, idx, U, kk, chunk, max_rounds,
+                                      steps=ctx.scan_steps)
+    return _pad_past_m(res, args, k)
+
+
 def _bta_run(ctx, args, U, k, budget, bcfg):
     block_size = ctx.block_size
     # budget is list-depth rows; BTA halts at block granularity
@@ -504,10 +547,7 @@ def _bta_run(ctx, args, U, k, budget, bcfg):
         # a prefix shorter than one block none: the gather path
         res = blocked_topk_batched(T, idx, U, kk, block_size, max_blocks,
                                    steps=ctx.scan_steps)
-    # k past M: the slots beyond the catalogue hold (-inf, -1), as naive's
-    vals, ids = pad_topk(res.values, res.indices,
-                         min(int(k), args["m_bucket"]))
-    return res._replace(values=vals, indices=ids)
+    return _pad_past_m(res, args, k)
 
 
 def _norm_run(ctx, args, U, k, budget, bcfg):
@@ -540,6 +580,14 @@ register_engine(Engine(
     exact=True, needs_index=False, supports_budget=True,
     backend="torch", layout="row_major",
     description="full matmul + stable top-k (the oracle)"))
+register_engine(Engine(
+    name="ta", make_args=_list_args, run_args=_ta_run,
+    exact=True, needs_index=True, supports_budget=True,
+    backend="torch", layout="list_major", batch_config=_list_batch_cfg,
+    description="Threshold Algorithm rounds (paper Alg. 2): chunked "
+                "steps, sequential-round accounting, batched "
+                "sign-specialised list-prefix tiles, then a gather tail "
+                "scored by kernel B4 (plain PyTorch on CPU tensors)"))
 register_engine(Engine(
     name="bta", make_args=_list_args, run_args=_bta_run,
     exact=True, needs_index=True, supports_budget=True,

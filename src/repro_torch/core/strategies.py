@@ -17,9 +17,7 @@ round-major first-occurrence key (:func:`_keys_from_ranks`), so the
 prefix, the tail and the gather path agree bit for bit.
 
 The port runs on the real catalogue size ``M``: no array is padded to an
-M-bucket, so no strategy takes the reference's ``m_real``. Chunked TA
-(``ta_rounds=True`` with ``block_size > 1``) belongs to the ``ta`` slice
-and raises ``NotImplementedError``.
+M-bucket, so no strategy takes the reference's ``m_real``.
 """
 
 from __future__ import annotations
@@ -27,14 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.driver import TA_SLICE, BatchedScanStrategy
+from repro_torch.core.driver import BatchedScanStrategy, lane_pieces
 
 _INT_MAX = 2147483647
-
-#: Elements one piece of lanes may hold in the int32 temporaries of a
-#: per-query key computation (64 MB): a batch's ``[B, C, R]`` rank rows
-#: are reduced a piece of lanes at a time, never all at once.
-KEY_PIECE_ELEMS = 1 << 24
 
 
 def sign_bucket(U) -> tuple:
@@ -92,23 +85,18 @@ def _keys_from_ranks(ranks: torch.Tensor, u: torch.Tensor,
     return keys.amin(dim=-1)
 
 
-def _lane_pieces(n_lanes: int, elems_per_lane: int):
-    """Slices of lanes whose key temporaries fit :data:`KEY_PIECE_ELEMS`."""
-    step = max(1, KEY_PIECE_ELEMS // max(int(elems_per_lane), 1))
-    return [slice(i, i + step) for i in range(0, n_lanes, step)]
-
-
 def rank_gather_first_keys(rank_by_item: torch.Tensor, U: torch.Tensor,
                            ids: torch.Tensor) -> torch.Tensor:
     """Keys for one block of candidates of ``L`` lanes, by row gather of
     ``rank_by_item [M, R]``: ``ids [L, C]`` with ``U [L, R]`` gives
-    ``[L, C]``, a piece of lanes at a time, so the ``[L, C, R]`` rank rows
-    never exist at once."""
+    ``[L, C]``, a piece of lanes at a time
+    (:func:`repro_torch.core.driver.lane_pieces`), so the ``[L, C, R]``
+    rank rows never exist at once."""
     m = rank_by_item.shape[0]
     per_lane = ids.shape[1] * rank_by_item.shape[1]
     return torch.cat([
         _keys_from_ranks(rank_by_item[ids[p].long()], U[p, None, :], m)
-        for p in _lane_pieces(ids.shape[0], per_lane)])
+        for p in lane_pieces(ids.shape[0], per_lane)])
 
 
 def batched_list_prefix_strategy(layout, t_sorted_desc: torch.Tensor,
@@ -136,9 +124,12 @@ def batched_list_prefix_strategy(layout, t_sorted_desc: torch.Tensor,
     freshness keys query-independent: one ``[R, block]`` key tile for the
     batch, evaluated with a constant direction of the bucket's sign. The
     caller guarantees that the bucket matches the batch.
+
+    ``ta_rounds`` with ``block_size > 1`` is chunked TA: each of a block's
+    depths is its own sequential round, with its own Eq. 3 bound per
+    query (``bound`` returns ``[B, block_size]``), and the driver replays
+    the rounds (:func:`repro_torch.core.driver.replay_rounds`).
     """
-    if ta_rounds and block_size > 1:
-        raise NotImplementedError(TA_SLICE)
     side_ids = layout.head_ids if sign >= 0 else layout.tail_ids
     R = side_ids.shape[0]
     m = layout.rank_by_item.shape[0]
@@ -175,7 +166,7 @@ def batched_list_prefix_strategy(layout, t_sorted_desc: torch.Tensor,
             fk = _keys_from_ranks(ranks, u_dir, m)             # [R, Bk]
             return ids, scores, (fk == abs_key).reshape(1, C).expand(B, C)
         fk = torch.cat([_keys_from_ranks(ranks, U[p, None, None, :], m)
-                        for p in _lane_pieces(B, per_lane)])   # [B, R, Bk]
+                        for p in lane_pieces(B, per_lane)])   # [B, R, Bk]
         return ids, scores, _fresh(fk, abs_key)
 
     def _mixed_block(step):
@@ -192,11 +183,24 @@ def batched_list_prefix_strategy(layout, t_sorted_desc: torch.Tensor,
         fk = torch.cat([
             _keys_from_ranks(torch.where(neg[p, :, None, None], t_rk, h_rk),
                              U[p, None, None, :], m)
-            for p in _lane_pieces(B, per_lane)])               # [B, R, Bk]
+            for p in lane_pieces(B, per_lane)])               # [B, R, Bk]
         return ids, scores, _fresh(fk, step * block_size * R + slot_key)
 
     u_pos = torch.where(neg, 0.0, U)                           # [B, R]
     u_neg = torch.where(neg, U, 0.0)
+
+    def round_bounds(step):
+        # Eq. 3 at every depth of the block, per query: [B, Bk]; the
+        # prefix never reaches the catalogue end, so no depth clamps
+        d0 = step * block_size
+        t_h = t_sorted_desc[:, d0:d0 + block_size]
+        if sign > 0:
+            return U @ t_h
+        # ascending walk: column j holds t[:, m-1-(d0+j)]
+        t_t = t_sorted_desc[:, m - block_size - d0:m - d0].flip(1)
+        if sign < 0:
+            return U @ t_t
+        return u_pos @ t_h + u_neg @ t_t
 
     def block_bound(step):
         # bound at the block's last depth only — one [R] column per side
@@ -209,6 +213,11 @@ def batched_list_prefix_strategy(layout, t_sorted_desc: torch.Tensor,
             return U @ t_t
         return u_pos @ t_h + u_neg @ t_t
 
-    return BatchedScanStrategy(
-        block=_single_sign_block if sign != 0 else _mixed_block,
-        bound=block_bound, num_steps=layout.prefix_steps(block_size))
+    block = _single_sign_block if sign != 0 else _mixed_block
+    n_steps = layout.prefix_steps(block_size)
+    if ta_rounds and block_size > 1:
+        return BatchedScanStrategy(block=block, bound=round_bounds,
+                                   num_steps=n_steps,
+                                   rounds_per_step=block_size)
+    return BatchedScanStrategy(block=block, bound=block_bound,
+                               num_steps=n_steps)

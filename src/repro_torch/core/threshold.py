@@ -1,12 +1,18 @@
-"""The Threshold Algorithm (paper Algorithm 2), item at a time, in numpy.
+"""The Threshold Algorithm (paper Algorithm 2).
 
-:func:`threshold_topk_np` is the paper-faithful oracle: it pops the R
-list heads of round d, scores each item the first time it is seen, and
-stops once the running K-th best reaches the round's Eq. 3 bound
-``sum_r u_r * t_r(y_{L_r(d)})``. It counts the score evaluations (the
-paper's cost metric) and the list depth. The Block Threshold Algorithm at
-``block_size=1`` (:func:`repro_torch.core.blocked.blocked_topk`) must
-reproduce its values, ids, ``n_scored`` and depth.
+:func:`threshold_topk_np` is the paper-faithful oracle, item at a time in
+numpy: it pops the R list heads of round d, scores each item the first
+time it is seen, and stops once the running K-th best reaches the round's
+Eq. 3 bound ``sum_r u_r * t_r(y_{L_r(d)})``. It counts the score
+evaluations (the paper's cost metric) and the list depth.
+
+:func:`threshold_topk` and its index forms are TA on tensors, one list
+depth a step: the batched gather scan of
+:mod:`repro_torch.core.blocked` at ``block_size=1``, freshness from the
+index's inverse permutations, its tail scored by kernel B4 on the card.
+The ``ta`` registry engine runs the chunked form
+(:func:`repro_torch.core.blocked.chunked_ta_topk`). All reproduce the
+oracle's values, ids, ``n_scored`` and depth.
 """
 
 from __future__ import annotations
@@ -14,6 +20,10 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.index import TopKIndex
+from repro_torch.core.naive import TopKResult
 
 NEG_INF = float("-inf")
 
@@ -99,3 +109,68 @@ def threshold_topk_np(
         found_at=found_at,
     )
     return top_vals, top_ids, stats
+
+
+# ---------------------------------------------------------------------------
+# TA on tensors: one list depth a step over the batched gather scan
+# ---------------------------------------------------------------------------
+# ``blocked`` and ``strategies`` import this module, so it imports
+# ``blocked`` inside the functions.
+
+
+def threshold_topk(
+    targets: torch.Tensor,
+    order: torch.Tensor,
+    t_sorted: torch.Tensor,
+    u: torch.Tensor,
+    k: int,
+    max_rounds: int = -1,
+    rank_desc: torch.Tensor = None,
+) -> TopKResult:
+    """TA of one query ``u: [R]``, one list depth a step.
+
+    ``order``/``t_sorted`` are the index's DESCENDING arrays
+    (``order_desc``/``t_sorted_desc``); negative weights walk their lists
+    backwards by index arithmetic. ``max_rounds`` is the halted TA's
+    budget (``-1``: exact). ``rank_desc`` (the index's inverse
+    permutations) answers freshness; it is worked out from ``order`` when
+    absent. ``depth`` is in rounds.
+    """
+    from repro_torch.core.blocked import _chunked_ta_gather, _rank_by_item
+    rank_by_item = (_rank_by_item(order) if rank_desc is None
+                    else rank_desc.T)
+    res = _chunked_ta_gather(targets, order, t_sorted, rank_by_item,
+                             u[None, :], k, 1, max_rounds, None)
+    return TopKResult(*(x[0] for x in res))
+
+
+def threshold_topk_from_index(targets: torch.Tensor, index: TopKIndex,
+                              u: torch.Tensor, k: int,
+                              max_rounds: int = -1) -> TopKResult:
+    return threshold_topk(targets, index.order_desc, index.t_sorted_desc,
+                          u, k, max_rounds, rank_desc=index.rank_desc)
+
+
+def threshold_topk_batched_from_index(
+    targets: torch.Tensor, index: TopKIndex, U: torch.Tensor, k: int,
+    chunk: int = 1, max_rounds: int = -1, layout=None,
+) -> TopKResult:
+    """Batched TA: the batch-native prefix scan when ``layout`` serves
+    the batch's sign bucket (``chunk`` rounds a step), else TA rounds by
+    the batched gather scan. Each query's result and counts equal its own
+    :func:`threshold_topk_from_index`."""
+    from repro_torch.core.blocked import (_chunked_ta_gather,
+                                          chunked_ta_topk_batched_native)
+    from repro_torch.core.strategies import sign_bucket
+    U = torch.atleast_2d(torch.as_tensor(U, dtype=targets.dtype,
+                                         device=targets.device))
+    chunk = max(chunk, 1)
+    if layout is not None and layout.prefix_steps(chunk) > 0:
+        sign, dense = sign_bucket(U)
+        if layout.serves_sign(sign):
+            return chunked_ta_topk_batched_native(
+                targets, index.order_desc, index.t_sorted_desc, U, k,
+                chunk=chunk, max_rounds=max_rounds, layout=layout,
+                sign=sign, dense=dense)
+    return _chunked_ta_gather(targets, index.order_desc, index.t_sorted_desc,
+                              index.rank_desc.T, U, k, 1, max_rounds, None)

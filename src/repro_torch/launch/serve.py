@@ -4,9 +4,11 @@
 --engine all`` builds a catalogue from ``--seed``, indexes it, and serves
 batched queries through the selected engine on ``--device`` (default
 ``cuda``), printing the paper's efficiency metric (scores/query) next to
-wall time. ``--engine all`` sweeps every exact engine of the registry and
-asserts that each agrees with ``naive``; any registry name or alias is
-accepted.
+wall time. ``--engine all`` sweeps every exact engine of the registry
+(``naive``, ``ta``, ``bta``, ``norm``, ``topk_mips``) and asserts that
+each agrees with ``naive``; any registry name or alias is accepted
+(``--engine ta`` or ``threshold`` serves the paper's Threshold
+Algorithm).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 ``TopKServer`` owns a SEP-LR catalogue plus a shared
 :class:`repro_torch.core.engines.EngineContext` on a device and serves
 batched queries through any engine of the registry, addressed by name
-(``bta`` — the default, alias ``blocked`` — ``naive``, ``norm``,
+(``bta`` — the default, alias ``blocked`` — ``ta``, the paper's
+Threshold Algorithm, alias ``threshold``, ``naive``, ``norm``,
 ``topk_mips``, alias ``pallas``). Requests are
 chunked by ``max_batch``; per-query pruning statistics (scores computed,
 depth) and latencies are aggregated per engine in :class:`ServeStats`.
@@ -203,7 +204,8 @@ class TopKServer:
         ``method`` is any registry name or alias from
         :meth:`available_engines`; unknown names raise ``ValueError``
         listing the registry. ``budget`` caps the scan of budget-capable
-        engines (norm-order rows); the result's ``upper`` then bounds every
+        engines (norm-order rows for ``norm``, list depth for ``bta``,
+        rounds for ``ta``); the result's ``upper`` then bounds every
         un-scanned item. Each chunk of ``max_batch`` queries is timed on
         the host clock up to its result's arrival on the host.
 

@@ -16,10 +16,6 @@ import repro.core as ref_core
 import repro_torch.core as core
 
 NOT_YET_PORTED = {
-    # A1: the ta engine and chunked TA
-    "threshold_topk": "A1", "threshold_topk_from_index": "A1",
-    "chunked_ta_topk": "A1", "chunked_ta_topk_batched": "A1",
-    "ta_round_strategy": "A1", "norm_block_strategy": "A1",
     # A3: auto
     "select_engine": "A3",
     # A5: host oracles
@@ -42,8 +38,12 @@ REPLACED = {
     "ScanStrategy": "repro_torch.core.driver:BatchedScanStrategy",
     "pruned_block_scan": "repro_torch.core.driver:batched_pruned_scan",
     "blocked_lists_strategy": "repro_torch.core.blocked:_batched_list_tail",
+    # one list depth a step: the gather tail at block 1
+    "ta_round_strategy": "repro_torch.core.blocked:_batched_list_tail",
     "list_prefix_strategy":
         "repro_torch.core.strategies:batched_list_prefix_strategy",
+    "norm_block_strategy":
+        "repro_torch.core.blocked:norm_pruned_topk_batched",
 }
 
 

@@ -441,3 +441,44 @@ def test_recsys_kernels_count_cuda_launches_only_and_check_operands():
     with pytest.raises(ValueError, match="float32 or float16"):
         fm_interaction(torch.zeros((2, 3, 4), device="cuda",
                                    dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# The ta engine on the card against the same engine on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("budget", [None, 300])
+def test_ta_engine_on_the_card_matches_the_cpu(budget):
+    """Chunked TA (32 rounds a step) over a 256-round list prefix that
+    every query outlives, its tail scored by B4 on the card and by B4's
+    plain version on the CPU: equal values (fp32 sums in two orders), ids
+    where scores are distinct, and equal ``n_scored``, ``depth`` and
+    ``upper`` bound; a budget of 300 rounds halts inside a chunk past the
+    prefix."""
+    _need_card()
+    from repro_torch.core.engines import EngineContext, get_engine
+    rng = np.random.default_rng(71)
+    T = rng.standard_normal((20000, 32)).astype(np.float32)
+    U = rng.standard_normal((40, 32)).astype(np.float32)
+    U[:8] = np.abs(U[:8])
+    U[8:16, ::3] = 0.0
+    contexts = [EngineContext(T, prefix_depth=256, device=dev)
+                for dev in ("cuda", "cpu")]
+    before = gather_scores.launches
+    card, cpu = (get_engine("ta").run(ctx, U, 10, budget=budget)
+                 for ctx in contexts)
+    torch.cuda.synchronize()
+    steps = contexts[0].scan_steps
+    assert steps["tail"] > 0
+    assert gather_scores.launches - before == steps["tail"]
+    assert_topk_equal((card.values.cpu(), card.indices.cpu()),
+                      (cpu.values, cpu.indices))
+    for f in ("n_scored", "depth"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    torch.testing.assert_close(card.upper.cpu(), cpu.upper, rtol=1e-5,
+                               atol=1e-6)
+    if budget is not None:
+        assert int(card.depth.max()) == budget
+    else:
+        assert int(card.depth.min()) > 256

@@ -111,19 +111,20 @@ def test_merge_topk_sorted_carry_wins_ties():
 
 
 def test_registry_names_and_aliases():
-    assert engine_names() == ["bta", "naive", "norm", "topk_mips"]
+    assert engine_names() == ["bta", "naive", "norm", "ta", "topk_mips"]
     assert get_engine("pallas").name == "topk_mips"
+    assert get_engine("threshold").name == "ta"
+    assert get_engine("ta").layout == "list_major"
     assert get_engine("norm_pruned").name == "norm"
     assert get_engine("blocked").name == "bta"
     assert get_engine("bta").layout == "list_major"
     assert [e.name for e in list_engines(backend="cuda")] == ["topk_mips"]
     assert [e.name for e in list_engines(needs_index=False)] == ["naive"]
     assert {e.name for e in list_engines() if e.supports_budget} == {
-        "bta", "naive", "norm"}
-    for name in ("ta", "auto", "norm_sharded", "fagin", "partial",
-                 "threshold"):
+        "bta", "naive", "norm", "ta"}
+    for name in ("auto", "norm_sharded", "fagin", "partial"):
         with pytest.raises(ValueError, match=r"registered: \['bta', "
-                                             r"'naive', 'norm', "
+                                             r"'naive', 'norm', 'ta', "
                                              r"'topk_mips'\]"):
             get_engine(name)
 
@@ -193,8 +194,8 @@ def test_server_alias_and_budget_match_reference(servers):
 
 def test_server_validation_and_later_slices(servers):
     _, srv, U = servers
-    with pytest.raises(ValueError, match="unknown engine 'ta'"):
-        srv.query(U, 5, method="ta")          # the next slice
+    with pytest.raises(ValueError, match="unknown engine 'auto'"):
+        srv.query(U, 5, method="auto")        # a later slice
     with pytest.raises(ValueError, match="k must be"):
         srv.query(U, 0, method="naive")
     with pytest.raises(ValueError, match="budget must be"):
@@ -224,7 +225,8 @@ def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):
     srv = TopKServer(model, max_batch=8, block_size=64, device="cpu")
     before = topk_mips.launches
     srv.warmup(5, batch_sizes=(1, 8))
-    assert srv.available_engines() == ["bta", "naive", "norm", "topk_mips"]
+    assert srv.available_engines() == ["bta", "naive", "norm", "ta",
+                                       "topk_mips"]
     for name in srv.available_engines():
         assert srv.cost_table.predict(name, 8, "", granular_only=True) > 0
     assert topk_mips.launches == before       # CPU tensors: plain version
