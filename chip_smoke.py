@@ -10,7 +10,10 @@ checkout. In order, it
 2. builds the four CUDA kernel libraries (``topk_mips``,
    ``gather_scores``, ``embedding_bag``, ``fm_interaction``; one ``nvcc``
    each, started together) and prints nvcc's ``-Xptxas -v`` register and
-   shared-memory reports;
+   shared-memory reports; then makes the two catalogues and warms a
+   ``TopKServer`` over each with every executable engine (one batch per
+   sign bucket for ``bta`` and ``ta``), printing each engine's warmup
+   time;
 3. holds each of ``topk_mips``' three modes against its plain PyTorch
    version on the card, at the main-path shapes (the LSHTC-like
    325,056 x 100 catalogue, B = 64, k = 10, block_m 256, superblock 8),
@@ -71,8 +74,34 @@ checkout. In order, it
    tail on B4) and ``TwoStageRanker``'s full-model re-rank to the top 5,
    counted, and holds B4 against its plain version on the retrieval's
    first tail block (R = 10, ids ``[64, 2,560]``), timed;
-9. prints one ``{"kernels": [...]}`` line and, last, the device line
-   ``{"ok": true, "device": {...}}``.
+9. drives ``auto`` — ``TopKServer.query(method="auto")`` over the 256
+   queries of each catalogue, a 64-query request a chunk, on the servers
+   whose warmup primed every engine per sign bucket — with the counters
+   read around each request; checks that each chunk ran the candidate
+   with the least granular prediction of the cost table it read (printed
+   beside the pick), that the pick's kernel ran (B1 for ``topk_mips``,
+   B4 once a list engine's tail or gather step), that ``auto`` agrees
+   with ``naive``, and that a context without a cost table (the cold
+   route) picks on the card what the same catalogue picks on the CPU,
+   with ``norm`` read as ``topk_mips``;
+10. drives the admission ladder at LSHTC-like: a server with
+    ``AdmissionPolicy(degrade_budget=64)`` warmed with ``budgets=(64,)``
+    (``bta`` and ``norm``), each rung forced through ``_cost_ewma`` —
+    ``to_norm`` (exact, equal to ``naive``), ``to_budgeted`` (its
+    certified slots a prefix of ``naive``'s top-K, ``n_uncertified``
+    counted), ``shed`` by an expired deadline and by ``max_inflight=0``
+    (sentinels) — then one unforced ``bta`` request whose deadline is
+    twice a measured ``topk_mips`` chunk, printing the rung it took, its
+    latency and ``req_p50_us``; the rungs run the ``norm`` scan, which
+    has no kernel;
+11. drives the host oracles through a card context: Table 1's toy
+    (Fagin at depth 5 scoring 9 items, TA after 2 rounds scoring 5, best
+    item 5), then 16 queries on the paper's MovieLens-1M stand-in (3,952
+    x 50) through ``fagin``, ``partial`` and ``ta``: equal values, and
+    ``partial``'s ``n_scored`` equal to ``ta``'s query for query, with
+    each one's host time;
+12. prints one ``{"kernels": [...]}`` line and, last, the device line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
 """
@@ -93,12 +122,12 @@ K = 10
 BATCH = 64
 N_QUERIES = 256
 # The paper's largest experiment (its §4.4 LSHTC stand-in) and the CF
-# stand-in whose norm spectrum decays steeply (§4.1 BookCrossing): the
-# reference's configs/seplr_paper.py sizes, generated from SEED.
-CATALOGUES = (
-    ("lshtc-like", 325056, 100, "lowrank_spectrum", 0.0),
-    ("bookcrossing-like", 105283, 50, "lognormal", 0.995),
-)
+# stand-in whose norm spectrum decays steeply (§4.1 BookCrossing), sized by
+# repro_torch/configs/seplr_paper.py and generated from SEED; the host
+# oracles run on its MovieLens-1M stand-in (3,952 x 50)
+LSH, BC = "lshtc-like", "bookcrossing-like"
+ORACLE_CATALOGUE = "movielens1m-like"
+N_ORACLE_QUERIES = 16
 MODES = ("two_level_batched", "two_level_tile", "single_level")
 REPLACES = {
     "two_level_batched": "src/repro/kernels/topk_mips.py:387",
@@ -143,6 +172,15 @@ B5_CALLS = {"embedding_bag[sum,d=1]": ("linear d=1", "sum"),
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+
+
+def catalogues():
+    """``(name, M, R, distribution, sparsity)`` of the two serving
+    catalogues, LSHTC-like first."""
+    import dataclasses
+    from repro_torch.configs.seplr_paper import CF_DATASETS, LSHTC_LIKE
+    return tuple(dataclasses.astuple(c) for c in
+                 (LSHTC_LIKE, *(c for c in CF_DATASETS if c.name == BC)))
 
 
 def fail(msg: str):
@@ -849,7 +887,7 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
     from repro_torch.core.engines import EngineContext, get_engine
     from repro_torch.kernels.gather_scores import gather_scores
     from repro_torch.kernels.topk_mips import topk_mips
-    lsh, bc = (c[0] for c in CATALOGUES)
+    lsh, bc = LSH, BC
     runs = [(lsh, U_all[lsh], "mixed", None), (bc, U_all[bc], "mixed", None),
             (bc, np.abs(U_all[bc]), "nonneg", None),
             (lsh, U_all[lsh][:BATCH], "halted", TA_BUDGET)]
@@ -962,6 +1000,241 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
                   rec["max_abs_err"])
 
 
+def agrees_with(got, want) -> bool:
+    """Values within tolerance and ids equal wherever scores are distinct,
+    of two host results."""
+    import numpy as np
+    import torch
+    return bool(np.allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
+                and ids_agree(torch.from_numpy(want.values),
+                              torch.from_numpy(want.indices),
+                              torch.from_numpy(got.values),
+                              torch.from_numpy(got.indices)))
+
+
+def auto_path(servers, U_all, results, cpu_ctxs) -> None:
+    """Step 9 of the module docstring. ``results`` holds the ``naive``
+    results of the served batches, ``cpu_ctxs`` each catalogue on the
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import (EngineContext, auto_candidates,
+                                          cost_label, get_engine,
+                                          select_engine)
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    torch.cuda.synchronize()
+    topk_mips.launches = gather_scores.launches = 0
+    picks = {}
+    for name, srv in servers.items():
+        ctx, ct = srv.ctx, srv.cost_table
+        cands = auto_candidates(ctx.device)
+        outs = []
+        for i in range(0, N_QUERIES, BATCH):
+            chunk = U_all[name][i:i + BATCH]
+            pred = {c: ct.predict(c, BATCH,
+                                  cost_label(get_engine(c), ctx, chunk),
+                                  granular_only=True) for c in cands}
+            check(all(v is not None for v in pred.values()),
+                  f"{name}: the warmup left an auto candidate unprimed: "
+                  f"{pred}")
+            want = min(cands, key=lambda c: pred[c])
+            served = {e: st.n_queries for e, st in srv.stats.items()}
+            steps = dict(ctx.scan_steps)
+            b1, b4 = topk_mips.launches, gather_scores.launches
+            t0 = time.perf_counter()
+            outs.append(srv.query(chunk, K, method="auto"))
+            us = 1e6 * (time.perf_counter() - t0) / BATCH
+            ran = [e for e, st in srv.stats.items()
+                   if st.n_queries > served.get(e, 0)]
+            check(ran == [want], f"{name}: auto ran {ran} where the table "
+                  f"it read predicts {want} cheapest: {pred}")
+            b1, b4 = topk_mips.launches - b1, gather_scores.launches - b4
+            tail = sum(ctx.scan_steps[key] - steps.get(key, 0)
+                       for key in ("tail", "gather"))
+            if want == "topk_mips":
+                check(b1 > 0 and b4 == 0,
+                      f"{name}: auto -> topk_mips launched B1 {b1} times")
+            elif want in ("bta", "ta"):
+                check(b4 == tail and b1 == 0,
+                      f"{name}: auto -> {want} launched B4 {b4} times in "
+                      f"{tail} tail steps")
+            else:
+                check(b1 == b4 == 0, f"{name}: auto -> {want} launched a "
+                      "kernel")
+            picks[name, i // BATCH] = want
+            print(f"  {name:>18s} auto chunk {i // BATCH}: {want} "
+                  f"({us:.1f} us/query; B1 {b1}, B4 {b4} launches); primed "
+                  "us/query " + " ".join(f"{c} {1e6 * pred[c]:.1f}"
+                                         for c in cands), flush=True)
+        got = type(outs[0])(*(np.concatenate(xs) for xs in zip(*outs)))
+        check(agrees_with(got, results[name, "naive"]),
+              f"{name}: auto differs from naive")
+        # the cold route (no cost table) on the card and on the CPU
+        cold = EngineContext(ctx.targets, index=ctx.index,
+                             block_size=ctx.block_size, device=ctx.device)
+        U = U_all[name]
+        sparse = U[:BATCH].copy()
+        sparse[:, 3:] = 0.0
+        batches = {"mixed 64": U[:BATCH], "mixed 8": U[:8],
+                   "mixed 1": U[:1], "non-negative 64": np.abs(U[:BATCH]),
+                   "sparse 64": sparse, "sparse 2": sparse[:2]}
+        seen = {}
+        for label, b in batches.items():
+            card = select_engine(cold, b).name
+            cpu = select_engine(cpu_ctxs[name], b).name
+            check(card == ("topk_mips" if cpu == "norm" else cpu),
+                  f"{name}: the cold route picks {card} on the card and "
+                  f"{cpu} on the CPU ({label})")
+            seen[label] = card
+        print(f"  {name:>18s} auto cold route (card = CPU, norm read as "
+              f"topk_mips): {seen}", flush=True)
+    launches = {"topk_mips": topk_mips.launches,
+                "gather_scores": gather_scores.launches}
+    print(f"auto path: picks {sorted(set(picks.values()))}, launches "
+          f"{launches}", flush=True)
+
+
+def ladder_path(servers, U_all, results, dev) -> None:
+    """Step 10 of the module docstring."""
+    import numpy as np
+    from repro_torch.serving.server import (AdmissionPolicy, ServeStats,
+                                            TopKServer)
+    base = servers[LSH]
+    U = U_all[LSH][:BATCH]
+    naive = type(results[LSH, "naive"])(
+        *(x[:BATCH] for x in results[LSH, "naive"]))
+    t0 = time.perf_counter()
+    srv = TopKServer(base.model, max_batch=BATCH, device=dev,
+                     policy=AdmissionPolicy(degrade_budget=64))
+    srv.warmup(K, batch_sizes=(BATCH,), engines=["bta", "norm"],
+               budgets=(64,))
+    print(f"{LSH} ladder server built and warmed (bta, norm, budget 64) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    st = srv.stats.setdefault("bta", ServeStats())
+
+    def rung_of(before):
+        moved = [r for r, n in st.degradations.items()
+                 if n > before.get(r, 0)]
+        return moved[0] if moved else "full"
+
+    def certified_prefix_ok(res):
+        certified = res.upper[:, None] - res.values <= 0
+        ok = all(np.allclose(res.values[q, :c], naive.values[q, :c],
+                             rtol=RTOL, atol=ATOL)
+                 for q, c in enumerate(certified.sum(axis=1)))
+        return ok, int((~certified).any(axis=1).sum()), certified
+
+    def shed_ok(res):
+        return bool((res.indices == -1).all()
+                    and (res.values == -np.inf).all()
+                    and (res.upper == np.inf).all())
+
+    forced = [("to_norm", {"bta": 10.0, "norm": 1e-9}, 50.0),
+              ("to_budgeted", {"bta": 10.0, "norm": 10.0}, 50.0),
+              ("shed", {}, 0.0)]
+    for want, ewma, deadline in forced:
+        srv._cost_ewma.update(ewma)
+        before, unc = dict(st.degradations), st.n_uncertified
+        t0 = time.perf_counter()
+        res = srv.query(U, K, method="bta", deadline_ms=deadline)
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = rung_of(before)
+        check(got == want, f"ladder: forced {want}, took {got}")
+        if want == "to_norm":
+            check(agrees_with(res, naive), "ladder: to_norm differs from "
+                  "naive")
+        elif want == "to_budgeted":
+            ok, n_unc, cert = certified_prefix_ok(res)
+            check(ok, "ladder: certified slots are not naive's top-K")
+            check(st.n_uncertified - unc == n_unc,
+                  f"ladder: n_uncertified moved by "
+                  f"{st.n_uncertified - unc}, the result holds {n_unc}")
+            print(f"  to_budgeted: {n_unc} of {BATCH} queries uncertified, "
+                  f"{int(cert.sum())} of {cert.size} slots certified",
+                  flush=True)
+        else:
+            check(shed_ok(res) and st.n_uncertified - unc == BATCH,
+                  "ladder: the expired deadline did not shed with "
+                  "sentinels")
+        print(f"  ladder forced {want}: {ms:.1f} ms for {BATCH} queries",
+              flush=True)
+    srv.policy.max_inflight = 0
+    before = dict(st.degradations)
+    res = srv.query(U, K, method="bta")
+    check(rung_of(before) == "shed" and shed_ok(res),
+          "ladder: max_inflight=0 did not shed")
+    srv.policy.max_inflight = AdmissionPolicy().max_inflight
+    print("  ladder forced shed by max_inflight=0: sentinels", flush=True)
+
+    # one unforced request, its deadline 2x a topk_mips chunk's cost
+    srv._cost_ewma.clear()
+    deadline = 2e-3 * base.stats["topk_mips"].p50_us * BATCH
+    before = dict(st.degradations)
+    t0 = time.perf_counter()
+    res = srv.query(U, K, method="bta", deadline_ms=deadline)
+    ms = 1e3 * (time.perf_counter() - t0)
+    rung = rung_of(before)
+    if rung in ("full", "to_norm"):
+        check(agrees_with(res, naive), f"ladder: {rung} differs from naive")
+    elif rung == "to_budgeted":
+        check(certified_prefix_ok(res)[0],
+              "ladder: certified slots are not naive's top-K")
+    else:
+        check(shed_ok(res), "ladder: a shed result holds an answer")
+    print(f"ladder: unforced bta request, deadline {deadline:.3f} ms, took "
+          f"{rung} in {ms:.3f} ms; degradations {st.degradations}, "
+          f"n_uncertified {st.n_uncertified}, req_p50_us "
+          f"{st.req_p50_us:.1f}", flush=True)
+
+
+def oracle_path(dev) -> None:
+    """Step 11 of the module docstring."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.seplr_paper import CF_DATASETS
+    from repro_torch.core.engines import EngineContext, get_engine
+    from repro_torch.core.seplr import random_model
+    from repro_torch.core.toy import TOY_BEST_ITEM, TOY_T, TOY_U
+    ctx = EngineContext(TOY_T, device=dev)
+    for name, scored, depth in (("fagin", 9, 5), ("ta", 5, 2),
+                                ("partial", 5, 2)):
+        res = get_engine(name).run(ctx, TOY_U, 1)
+        got = (int(res.indices[0, 0]), int(res.n_scored[0]),
+               int(res.depth[0]))
+        check(res.values.device.type == ctx.device.type
+              and got == (TOY_BEST_ITEM, scored, depth),
+              f"Table 1: {name} gives (best, scored, depth) {got}, the "
+              f"paper {(TOY_BEST_ITEM, scored, depth)}")
+    print("Table 1 through a card context: fagin depth 5 scoring 9, ta 2 "
+          "rounds scoring 5, partial touching 5; best item 5", flush=True)
+    cfg = next(c for c in CF_DATASETS if c.name == ORACLE_CATALOGUE)
+    rng = np.random.default_rng(SEED)
+    model = random_model(rng, cfg.num_targets, cfg.rank, cfg.distribution,
+                         cfg.sparsity, name=cfg.name, device=dev)
+    U = queries(rng, N_ORACLE_QUERIES, cfg.rank, cfg.distribution)
+    ctx = EngineContext(model.targets, device=dev)
+    res, secs = {}, {}
+    for name in ("ta", "fagin", "partial"):
+        t0 = time.perf_counter()
+        out = get_engine(name).run(ctx, U, K)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        res[name] = type(out)(*(x.cpu().numpy() for x in out))
+    for name in ("fagin", "partial"):
+        check(agrees_with(res[name], res["ta"]),
+              f"{cfg.name}: {name} differs from ta")
+    check(np.array_equal(res["partial"].n_scored, res["ta"].n_scored),
+          f"{cfg.name}: partial touches {res['partial'].n_scored.tolist()}, "
+          f"ta scores {res['ta'].n_scored.tolist()}")
+    print(f"{cfg.name} ({cfg.num_targets} x {cfg.rank}), "
+          f"{N_ORACLE_QUERIES} queries: host s " + ", ".join(
+              f"{n} {t:.2f}" for n, t in secs.items())
+          + "; n_scored mean " + ", ".join(
+              f"{n} {res[n].n_scored.mean():.1f}" for n in res)
+          + "; partial's n_scored equals ta's query for query", flush=True)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
@@ -998,35 +1271,39 @@ def run(dev, kind: str) -> None:
                   f"{b.log.strip()}", flush=True)
 
     import dataclasses
-    from repro_torch.core.engines import EngineContext, get_engine
+    from repro_torch.core.engines import (EngineContext, get_engine,
+                                          list_engines)
     from repro_torch.core.index import TopKIndex
     from repro_torch.core.seplr import random_model
     from repro_torch.kernels.gather_scores import FEW_LANES, gather_scores
     from repro_torch.kernels.topk_mips import topk_mips
     from repro_torch.serving.server import TopKServer
 
+    cats = catalogues()
     rng = np.random.default_rng(SEED)
-    servers, U_all = {}, {}
-    for name, m, r, dist, sparsity in CATALOGUES:
+    servers, U_all, warm_s = {}, {}, {}
+    for name, m, r, dist, sparsity in cats:
         t0 = time.perf_counter()
         model = random_model(rng, m, r, dist, sparsity, name=name,
                              device=dev)
         U_all[name] = queries(rng, N_QUERIES, r, dist)
         srv = servers[name] = TopKServer(model, max_batch=BATCH, device=dev)
-        # the default warmup (every engine), ta's share timed on its own
-        srv.warmup(K, engines=[e for e in srv.available_engines()
-                               if e != "ta"])
-        torch.cuda.synchronize()
-        t_ta = time.perf_counter()
-        srv.warmup(K, engines=["ta"])
-        torch.cuda.synchronize()
+        # the default warmup (every executable engine, a batch per sign
+        # bucket for the list engines), each engine's share timed on its own
+        for eng in sorted((e.name for e in list_engines()
+                           if e.has_executable), key=lambda n: n == "ta"):
+            t_eng = time.perf_counter()
+            srv.warmup(K, engines=[eng])
+            torch.cuda.synchronize()
+            warm_s[name, eng] = time.perf_counter() - t_eng
         print(f"{name}: M={m} R={r} built and warmed in "
-              f"{time.perf_counter() - t0:.1f} s, of it ta's warmup "
-              f"{time.perf_counter() - t_ta:.1f} s", flush=True)
+              f"{time.perf_counter() - t0:.1f} s, of it by engine "
+              + ", ".join(f"{e} {t:.1f} s" for (n, e), t in warm_s.items()
+                          if n == name), flush=True)
 
     # -- the kernel against its plain version on the card ---------------------
     compare, library_ms = {}, {}
-    for name, *_rest in CATALOGUES:
+    for name, *_rest in cats:
         cat = servers[name].ctx.catalog
         U = torch.from_numpy(U_all[name][:BATCH]).to(dev)
         compare[name] = compare_modes(cat, U, K, name, timing=True)
@@ -1035,14 +1312,14 @@ def run(dev, kind: str) -> None:
         print(f"  {name:>18s} library torch.topk(torch.matmul(U, T.T)): "
               f"{library_ms[name]:.4g} ms", flush=True)
     compare.update(edge_cases(rng, dev))
-    lsh_modes = compare[CATALOGUES[0][0]]
-    print("topk_mips phases at " + CATALOGUES[0][0] + ": " + json.dumps({
+    lsh_modes = compare[LSH]
+    print("topk_mips phases at " + LSH + ": " + json.dumps({
         mode: {key: rec[key] for key in ("ms", "ms_warm", "score_ms",
                                          "walk_ms", "scratch_bytes")}
         for mode, rec in lsh_modes.items()}), flush=True)
 
     # -- kernel B4 against its plain version on the card ----------------------
-    lsh, bc = (c[0] for c in CATALOGUES)
+    lsh, bc = LSH, BC
     first_tail = servers[lsh].ctx.layout("list_major").prefix_steps(
         servers[lsh].block_size)
     gather_cases = []
@@ -1124,7 +1401,7 @@ def run(dev, kind: str) -> None:
                               for st in bta_steps.values()),
           "gather_scores launches differ from the bta tail steps")
 
-    for name, m, r, dist, _ in CATALOGUES:
+    for name, m, r, dist, _ in cats:
         naive = results[name, "naive"]
         U = U_all[name]
         check(naive.values.shape == (N_QUERIES, K)
@@ -1219,6 +1496,17 @@ def run(dev, kind: str) -> None:
 
     # -- the ta path, counted -------------------------------------------------
     ta_row = ta_path(servers, U_all, results, card.depth, cpu_ctx)
+    recsys_rows = recsys_path(dev)
+
+    # -- auto, the admission ladder and the host oracles ---------------------
+    bc_index = servers[bc].ctx.index
+    cpu_ctxs = {lsh: cpu_ctx, bc: EngineContext(
+        servers[bc].ctx.targets.cpu(), device="cpu",
+        index=TopKIndex(**{f.name: getattr(bc_index, f.name).cpu()
+                           for f in dataclasses.fields(TopKIndex)}))}
+    auto_path(servers, U_all, results, cpu_ctxs)
+    ladder_path(servers, U_all, results, dev)
+    oracle_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -1245,7 +1533,7 @@ def run(dev, kind: str) -> None:
                compare_b4[f"first {n_few} lanes"],
                bta_path_launches["rows"], b4_err),
         ta_row]
-    kernels["kernels"].extend(recsys_path(dev))
+    kernels["kernels"].extend(recsys_rows)
     for row in kernels["kernels"]:
         check(row["launches"] > 0,
               f"the main path launched {row['name']} 0 times")

@@ -25,7 +25,9 @@ from repro_torch.core.engines import (
     get_engine,
     list_engines,
     register_engine,
+    select_engine,
 )
+from repro_torch.core.fagin import FaginStats, fagin_topk_np
 from repro_torch.core.index import TopKIndex, build_index
 from repro_torch.core.layout import (
     DEFAULT_PREFIX_DEPTH,
@@ -37,6 +39,7 @@ from repro_torch.core.layout import (
 )
 from repro_torch.core.naive import (TopKResult, certificate_gaps,
                                     certified_counts, naive_topk)
+from repro_torch.core.partial import PartialTAStats, partial_threshold_topk_np
 from repro_torch.core.seplr import (
     SepLRModel,
     from_cosine_similarity,
@@ -61,10 +64,14 @@ __all__ = [
     "from_matrix_factorization", "from_linear_multilabel",
     "from_pairwise_kronecker", "kronecker_query", "normalize_query",
     "random_model",
+    # host oracles (paper Algorithms 1 and 3)
+    "fagin_topk_np", "FaginStats", "partial_threshold_topk_np",
+    "PartialTAStats",
     # engine layer
     "merge_topk_sorted", "rank_gather_first_keys",
     "Engine", "EngineContext", "register_engine", "get_engine",
     "CostTable", "list_engines", "engine_names", "batch_bucket",
+    "select_engine",
     # layout subsystem
     "RowMajorLayout", "NormMajorLayout", "ListMajorLayout", "build_layout",
     "layout_names", "DEFAULT_PREFIX_DEPTH",

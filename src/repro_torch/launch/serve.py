@@ -5,10 +5,12 @@
 batched queries through the selected engine on ``--device`` (default
 ``cuda``), printing the paper's efficiency metric (scores/query) next to
 wall time. ``--engine all`` sweeps every exact engine of the registry
-(``naive``, ``ta``, ``bta``, ``norm``, ``topk_mips``) and asserts that
-each agrees with ``naive``; any registry name or alias is accepted
-(``--engine ta`` or ``threshold`` serves the paper's Threshold
-Algorithm).
+but ``auto`` and the host oracles (``naive``, ``ta``, ``bta``, ``norm``,
+``topk_mips``) and asserts that each agrees with ``naive``; any registry
+name or alias is accepted (``--engine ta`` or ``threshold`` serves the
+paper's Threshold Algorithm, ``--engine fagin`` or ``partial`` a host
+oracle, slowly). ``--engine auto`` warms the engines ``auto`` can pick
+and reports each one it ran.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def main(argv=None):
                          "versions")
     args = ap.parse_args(argv)
 
-    from repro_torch.core.engines import get_engine, list_engines
+    from repro_torch.core.engines import (auto_candidates, get_engine,
+                                          list_engines)
     from repro_torch.core.seplr import random_model
     from repro_torch.serving.server import TopKServer
 
@@ -54,17 +57,28 @@ def main(argv=None):
         (args.num_queries, args.rank)).astype(np.float32) * spectrum
 
     if args.engine == "all":
-        # naive first: it is the ground truth the others are held against
-        engines = [e.name for e in list_engines(exact=True)]
+        # skip the host oracles (item-at-a-time loops: minutes a batch at
+        # serving sizes; reachable by an explicit --engine fagin/partial)
+        # and auto; naive first: it is the ground truth the others are
+        # held against
+        engines = [e.name for e in list_engines(exact=True)
+                   if e.name != "auto" and not e.host_only]
         engines.sort(key=lambda n: n != "naive")
     else:
         engines = [get_engine(args.engine).name]
     # warm the batch sizes the chunk sequence will hit, so the reported
-    # us/query is steady-state serving latency, not first-use set-up
+    # us/query is steady-state serving latency, not first-use set-up;
+    # auto is warmed through the engines it can pick, the host oracles
+    # not at all
     sizes = {min(args.batch, args.num_queries)}
     if args.num_queries % args.batch:
         sizes.add(args.num_queries % args.batch)
-    srv.warmup(args.k, batch_sizes=sorted(sizes), engines=engines)
+    warm = [e for e in engines if get_engine(e).has_executable]
+    if "auto" in engines:
+        warm = sorted(set(warm) | set(auto_candidates(srv.device)))
+    if warm:
+        srv.warmup(args.k, batch_sizes=sorted(sizes), engines=warm)
+        print(f"warmed: {' '.join(warm)}")
     ref = None
     for eng in engines:
         res = srv.query(U, args.k, method=eng)
@@ -73,10 +87,16 @@ def main(argv=None):
             ref = vals
         elif not np.allclose(vals, ref, atol=1e-4):
             raise SystemExit(f"{eng} mismatches naive!")
-        st = srv.stats[eng]
-        print(f"{eng:>12s}: {st.scores_per_query:10.1f} scores/query "
-              f"({st.scores_per_query / args.targets:6.2%} of naive)  "
-              f"{st.us_per_query:10.1f} us/query")
+        # auto's counters go to the engines it ran: report each of them
+        resolved = ([name for name, st in sorted(srv.stats.items())
+                     if name != "auto" and st.n_queries]
+                    if eng == "auto" else [eng])
+        for name in resolved:
+            st = srv.stats[name]
+            label = f"auto->{name}" if eng == "auto" else name
+            print(f"{label:>12s}: {st.scores_per_query:10.1f} scores/query "
+                  f"({st.scores_per_query / args.targets:6.2%} of naive)  "
+                  f"{st.us_per_query:10.1f} us/query")
 
 
 if __name__ == "__main__":

@@ -5,13 +5,20 @@
 batched queries through any engine of the registry, addressed by name
 (``bta`` — the default, alias ``blocked`` — ``ta``, the paper's
 Threshold Algorithm, alias ``threshold``, ``naive``, ``norm``,
-``topk_mips``, alias ``pallas``). Requests are
-chunked by ``max_batch``; per-query pruning statistics (scores computed,
-depth) and latencies are aggregated per engine in :class:`ServeStats`.
+``topk_mips``, alias ``pallas``, the host oracles ``fagin`` and
+``partial``, and ``auto``, which picks an engine per chunk with
+:func:`repro_torch.core.engines.select_engine`). Requests are chunked by
+``max_batch``; per-query pruning statistics (scores computed, depth) and
+latencies are aggregated per engine that ran in :class:`ServeStats`.
+
+Deadlines (``deadline_ms``, or :attr:`AdmissionPolicy.deadline_ms`) walk
+each chunk down an admission ladder — the requested engine, then
+``norm``, then a budgeted ``norm`` scan with certificates, then shed —
+recorded under the requested method.
 
 The catalogue is a static snapshot: the reference's never-mutated fast
-path. Streaming mutations, sharded catalogues, deadlines and the admission
-ladder belong to later slices of the port and raise ``NotImplementedError``.
+path. Streaming mutations and sharded catalogues belong to a later slice
+of the port and raise ``NotImplementedError``.
 
 ``TwoStageRanker`` is the production recsys pattern: exact SEP-LR top-N
 retrieval followed by full-model re-ranking of the N retrieved candidates.
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.engines import (CostTable, EngineContext,
-                                      batch_bucket, engine_names, get_engine)
+from repro_torch.core.engines import (CostTable, Engine, EngineContext,
+                                      batch_bucket, engine_names, get_engine,
+                                      select_engine)
 from repro_torch.core.naive import TopKResult
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.core.strategies import sign_bucket_label
@@ -40,7 +48,6 @@ from repro_torch.core.strategies import sign_bucket_label
 LATENCY_RING = 512
 
 _STREAMING = "the streaming-tier slice (ROADMAP queue A)"
-_ADMISSION = "the budgets-and-admission-ladder slice (ROADMAP queue A)"
 
 
 def _ring() -> collections.deque:
@@ -60,7 +67,11 @@ class ServeStats:
     and ``req_p50_us``/... over a ring of per-REQUEST latencies (one
     :meth:`TopKServer.query` call, all its chunks). ``sign_batches``
     counts served batches per sign bucket (the list engines' batch
-    specialisation). Counter updates take a lock.
+    specialisation). ``degradations`` counts the admission ladder's
+    decisions by rung (``to_norm``, ``to_budgeted``, ``shed``) and
+    ``n_uncertified`` the queries whose result holds an uncertified slot;
+    both are kept on the REQUESTED method's stats, while the serve
+    counters follow the engine that ran. Counter updates take a lock.
     """
 
     n_queries: int = 0
@@ -72,6 +83,8 @@ class ServeStats:
     req_lat_us_ring: collections.deque = dataclasses.field(
         default_factory=_ring, repr=False, compare=False)
     sign_batches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    degradations: Dict[str, int] = dataclasses.field(default_factory=dict)
+    n_uncertified: int = 0
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
@@ -95,6 +108,14 @@ class ServeStats:
                 self.sign_batches[sign_label] = (
                     self.sign_batches.get(sign_label, 0) + 1)
             self.lat_us_ring.append(1e6 * dt_s / max(n, 1))
+
+    def bump_degradation(self, rung: str) -> None:
+        with self._lock:
+            self.degradations[rung] = self.degradations.get(rung, 0) + 1
+
+    def note_uncertified(self, n: int) -> None:
+        with self._lock:
+            self.n_uncertified += n
 
     def latency_percentile(self, q: float) -> float:
         """q-th percentile (0-100) of recent per-batch latencies, in us."""
@@ -136,20 +157,46 @@ class ServeStats:
         return self.request_percentile(99.0)
 
 
+@dataclasses.dataclass
+class AdmissionPolicy:
+    """Load/deadline policy for :meth:`TopKServer.query`.
+
+    When a deadline is in force, each chunk walks a degradation ladder
+    instead of queueing unboundedly: the REQUESTED engine if its predicted
+    cost fits the remaining time, else ``norm`` (an exact scan), else a
+    BUDGETED ``norm`` scan whose result carries per-item certificates
+    (``TopKResult.upper``), else — deadline already blown, or the server
+    over ``max_inflight`` — the chunk is SHED: sentinel values (``-inf``
+    scores, ``-1`` ids, ``+inf`` certificate bounds: nothing certified),
+    never a partial answer passed off as exact. Every downgrade and shed
+    lands in :attr:`ServeStats.degradations` under the requested method.
+    """
+
+    #: default per-query deadline (None = no deadline: never degrade);
+    #: ``query(deadline_ms=...)`` overrides it per call
+    deadline_ms: Optional[float] = None
+    #: concurrent chunks in flight before overload shedding kicks in
+    max_inflight: int = 8
+    #: scan budget (rows) of the "budgeted" rung
+    degrade_budget: int = 64
+    #: shed on overload/expiry (False = serve the budgeted rung instead)
+    shed_on_overload: bool = True
+
+
 def _to_host(res: TopKResult) -> TopKResult:
-    return TopKResult(*(x.detach().cpu().numpy() for x in res))
+    return TopKResult(*(None if x is None else x.detach().cpu().numpy()
+                        for x in res))
 
 
 class TopKServer:
     """Exact top-K serving over a static catalogue on ``device``
-    (``None`` = ``cuda``)."""
+    (``None`` = ``cuda``), under an :class:`AdmissionPolicy` (default:
+    no deadline, at most 8 chunks in flight)."""
 
     def __init__(self, model: SepLRModel, max_batch: int = 64,
-                 block_size: int = 256, policy=None, n_shards: int = 0,
+                 block_size: int = 256,
+                 policy: Optional[AdmissionPolicy] = None, n_shards: int = 0,
                  cost_table: Optional[CostTable] = None, device=None):
-        if policy is not None:
-            raise NotImplementedError(
-                f"AdmissionPolicy comes with {_ADMISSION}")
         if n_shards > 0:
             raise NotImplementedError(
                 f"n_shards > 0 (the LSM ladder) comes with {_STREAMING}")
@@ -163,19 +210,30 @@ class TopKServer:
                                  cost_table=self.cost_table,
                                  device=self.device)
         self.stats: Dict[str, ServeStats] = {}
+        self.policy = policy if policy is not None else AdmissionPolicy()
+        # per-engine EWMA of per-query serve seconds: the ladder's FIRST
+        # cost source (tests set entries to force a rung); an engine with
+        # no entry falls back to the shared cost table, and one absent
+        # from both predicts 0 (admit, then learn)
+        self._cost_ewma: Dict[str, float] = {}
+        self._admit_lock = threading.Lock()
+        self._inflight = 0
 
     @staticmethod
     def available_engines() -> List[str]:
         """Registry names accepted by :meth:`query`'s ``method=``."""
         return engine_names()
 
-    def warmup(self, k: int, batch_sizes=None,
-               engines=None) -> "TopKServer":
+    def warmup(self, k: int, batch_sizes=None, engines=None,
+               budgets=None) -> "TopKServer":
         """Build every engine's lazy state ahead of traffic (index,
         layouts, kernel catalogue, the CUDA library) and prime the cost
-        table; see :meth:`EngineContext.warmup`."""
+        table, per sign bucket and, with ``budgets``, per budgeted
+        variant (the ladder's ``policy.degrade_budget`` among them); see
+        :meth:`EngineContext.warmup`."""
         sizes = tuple(batch_sizes) if batch_sizes else (1, self.max_batch)
-        self.ctx.warmup(k, batch_sizes=sizes, engines=engines)
+        self.ctx.warmup(k, batch_sizes=sizes, engines=engines,
+                        budgets=budgets)
         return self
 
     # -- streaming mutations: a later slice ---------------------------------
@@ -195,6 +253,51 @@ class TopKServer:
         s.record_batch(n, int(np.sum(res.n_scored)),
                        int(np.sum(res.depth)), dt, sign_label)
 
+    def _note_certificates(self, req_stats: ServeStats,
+                           res: TopKResult) -> None:
+        """Count the queries of a budgeted batch whose result holds an
+        uncertified slot (``upper - value > 0`` at a real id)."""
+        gaps = res.upper[:, None] - res.values
+        unc = np.logical_and(gaps > 0, res.indices >= 0)
+        req_stats.note_uncertified(int(np.sum(np.any(unc, axis=1))))
+
+    def _shed_result(self, n: int, k: int) -> TopKResult:
+        """Sentinel result for a shed chunk: explicitly nothing — ``-inf``
+        scores, ``-1`` ids, ``+inf`` certificate bounds (no slot
+        certified)."""
+        return TopKResult(
+            np.full((n, k), -np.inf, np.float32),
+            np.full((n, k), -1, np.int32),
+            np.zeros((n,), np.int32),
+            np.zeros((n,), np.int32),
+            upper=np.full((n,), np.inf, np.float32))
+
+    def _admit(self, eng: Engine, n: int, remaining_s: Optional[float]):
+        """The ladder's rung for one ``n``-query chunk: ``(engine or None,
+        budget, rung)``, None meaning shed. Costs come from
+        :attr:`_cost_ewma`, else from the cost table at this chunk's
+        batch bucket (warmup primes it), else 0."""
+        pol = self.policy
+        if remaining_s is None:
+            return eng, None, "full"
+        bucket = batch_bucket(max(n, 1))
+
+        def cost(name: str) -> float:
+            c = self._cost_ewma.get(name)
+            if c is None:
+                c = self.cost_table.predict(name, bucket, "")
+            return (c or 0.0) * n
+
+        if remaining_s <= 0.0:
+            if pol.shed_on_overload:
+                return None, None, "shed"
+            return get_engine("norm"), pol.degrade_budget, "to_budgeted"
+        if cost(eng.name) <= remaining_s:
+            return eng, None, "full"
+        if eng.name != "norm" and cost("norm") <= remaining_s:
+            return get_engine("norm"), None, "to_norm"
+        return get_engine("norm"), pol.degrade_budget, "to_budgeted"
+
     def query(self, U, k: int, method: str = "bta",
               budget: Optional[int] = None,
               deadline_ms: Optional[float] = None) -> TopKResult:
@@ -203,11 +306,22 @@ class TopKServer:
 
         ``method`` is any registry name or alias from
         :meth:`available_engines`; unknown names raise ``ValueError``
-        listing the registry. ``budget`` caps the scan of budget-capable
-        engines (norm-order rows for ``norm``, list depth for ``bta``,
-        rounds for ``ta``); the result's ``upper`` then bounds every
-        un-scanned item. Each chunk of ``max_batch`` queries is timed on
-        the host clock up to its result's arrival on the host.
+        listing the registry. ``auto`` picks an engine per chunk
+        (:func:`select_engine`, reading a tensor chunk to the host once);
+        its serve counters go to the engine that ran. ``budget`` caps the
+        scan of budget-capable engines (norm-order rows for ``norm``,
+        list depth for ``bta``, rounds for ``ta``); the result's ``upper``
+        then bounds every un-scanned item. Each chunk of ``max_batch``
+        queries is timed on the host clock up to its result's arrival on
+        the host, and its per-query cost recorded in the cost table (and
+        :attr:`_cost_ewma`), under ``"<engine>@budget"`` when budgeted.
+
+        **Deadlines** (``deadline_ms``, else ``policy.deadline_ms``): each
+        chunk walks the :class:`AdmissionPolicy` ladder on the time the
+        request has left — requested engine, ``norm``, budgeted ``norm``,
+        shed — after the overload check (``policy.max_inflight`` chunks in
+        flight). Rungs other than ``full`` count in the requested method's
+        :attr:`ServeStats.degradations`.
 
         Validation: non-positive ``k``/``budget``, negative
         ``deadline_ms``, wrong-rank or >2-D ``U``, and non-finite HOST
@@ -222,8 +336,6 @@ class TopKServer:
         if deadline_ms is not None and float(deadline_ms) < 0:
             raise ValueError(
                 f"deadline_ms must be >= 0 or None, got {deadline_ms!r}")
-        if deadline_ms is not None:
-            raise NotImplementedError(f"deadline_ms comes with {_ADMISSION}")
         # device-resident inputs stay where they are; host inputs are
         # checked for finiteness and moved per chunk
         if isinstance(U, torch.Tensor):
@@ -240,25 +352,65 @@ class TopKServer:
         if isinstance(U_all, np.ndarray) and not np.all(np.isfinite(U_all)):
             bad = int(np.argwhere(~np.isfinite(U_all).all(axis=1))[0, 0])
             raise ValueError(f"query row {bad} contains NaN/Inf values")
+        if deadline_ms is None:
+            deadline_ms = self.policy.deadline_ms
         t_admit = time.perf_counter()
         req_stats = self.stats.setdefault(engine.name, ServeStats())
         outs = []
         for i in range(0, U_all.shape[0], self.max_batch):
             chunk = U_all[i: i + self.max_batch]
             n = chunk.shape[0]
-            # the chunk's sign bucket (engines with a batch specialisation
-            # only): worked out once, for the run and the per-bucket stats
-            t0 = time.perf_counter()
-            bcfg = (engine.batch_config(self.ctx, chunk)
-                    if engine.batch_config is not None else ())
-            label = sign_bucket_label(bcfg) if engine.batch_config else ""
-            res = _to_host(engine.run(self.ctx, chunk, k, budget=budget,
-                                      bcfg=bcfg))
-            dt = time.perf_counter() - t0
-            key = engine.name if budget is None else f"{engine.name}@budget"
-            self.cost_table.observe(key, batch_bucket(n), label,
-                                    dt / max(n, 1))
-            self._record(engine.name, res, dt, n, label)
+            eng = (select_engine(self.ctx, chunk)
+                   if engine.name == "auto" else engine)
+            # admission: overload first (a counter check), then the
+            # deadline ladder on the time this request has left
+            with self._admit_lock:
+                overloaded = (self._inflight >= self.policy.max_inflight
+                              and self.policy.shed_on_overload)
+                self._inflight += 1
+            try:
+                if overloaded:
+                    run_eng, bud, rung = None, None, "shed"
+                else:
+                    remaining = None if deadline_ms is None else (
+                        deadline_ms / 1e3 - (time.perf_counter() - t_admit))
+                    run_eng, bud, rung = self._admit(eng, n, remaining)
+                if rung != "full":
+                    req_stats.bump_degradation(rung)
+                if run_eng is None:
+                    req_stats.note_uncertified(n)
+                    outs.append(self._shed_result(n, int(k)))
+                    continue
+                if bud is None:
+                    bud = budget  # the caller's budget, not a downgrade
+                # the chunk's sign bucket (engines with a batch
+                # specialisation only): worked out once, for the run and
+                # the per-bucket stats
+                t0 = time.perf_counter()
+                bcfg = (run_eng.batch_config(self.ctx, chunk)
+                        if run_eng.batch_config is not None else ())
+                label = (sign_bucket_label(bcfg)
+                         if run_eng.batch_config is not None else "")
+                res = _to_host(run_eng.run(self.ctx, chunk, k, budget=bud,
+                                           bcfg=bcfg))
+                dt = time.perf_counter() - t0
+            finally:
+                with self._admit_lock:
+                    self._inflight -= 1
+            if res.upper is None:
+                # an exact engine without a bound: the vacuous one
+                res = res._replace(upper=np.full((n,), -np.inf, np.float32))
+            if bud is not None:
+                self._note_certificates(req_stats, res)
+            # cost model: per-query seconds per (engine, budgeted?), as an
+            # EWMA for the ladder and per (bucket, sign) for the router
+            key = run_eng.name if bud is None else f"{run_eng.name}@budget"
+            per_q = dt / max(n, 1)
+            prev = self._cost_ewma.get(key)
+            self._cost_ewma[key] = (per_q if prev is None
+                                    else 0.8 * prev + 0.2 * per_q)
+            self.cost_table.observe(key, batch_bucket(n), label, per_q)
+            self._record(run_eng.name, res, dt, n, label)
             outs.append(res)
         req_stats.record_request_latency(1e6 * (time.perf_counter() - t_admit))
         return TopKResult(*(np.concatenate(xs, axis=0) for xs in zip(*outs)))

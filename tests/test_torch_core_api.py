@@ -16,11 +16,6 @@ import repro.core as ref_core
 import repro_torch.core as core
 
 NOT_YET_PORTED = {
-    # A3: auto
-    "select_engine": "A3",
-    # A5: host oracles
-    "fagin_topk_np": "A5", "FaginStats": "A5",
-    "partial_threshold_topk_np": "A5", "PartialTAStats": "A5",
     # A6: streaming tier
     "SegmentedCatalogue": "A6", "Snapshot": "A6", "DeltaSegment": "A6",
     "QueryInfo": "A6", "SegmentStats": "A6", "delta_bucket": "A6",

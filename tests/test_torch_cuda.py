@@ -1,7 +1,9 @@
 """The ``topk_mips``, ``gather_scores``, ``embedding_bag`` and
 ``fm_interaction`` CUDA kernels against their plain PyTorch versions, on
-the card. These tests need a CUDA device (the kernels
-have no CPU mode) and skip with a reason where there is none; the file
+the card, and the engines and server paths that launch them (``ta``,
+``auto``, the admission ladder) against the same paths on the CPU. These
+tests need a CUDA device (the kernels have no CPU mode) and skip with a
+reason where there is none; the file
 imports no jax, so it also runs where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -482,3 +484,79 @@ def test_ta_engine_on_the_card_matches_the_cpu(budget):
         assert int(card.depth.max()) == budget
     else:
         assert int(card.depth.min()) > 256
+
+
+# ---------------------------------------------------------------------------
+# auto and the admission ladder on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _card_and_cpu_servers(T, **kw):
+    from repro_torch.core.seplr import SepLRModel
+    from repro_torch.serving.server import TopKServer
+    return [TopKServer(SepLRModel(T, device=dev), max_batch=16,
+                       block_size=64, device=dev, **kw)
+            for dev in ("cuda", "cpu")]
+
+
+def test_auto_on_the_card_matches_the_cpu():
+    """Cold routes over 48 queries (dense, sparse, dense chunks): the card
+    picks what the CPU picks with ``norm`` read as ``topk_mips``, launches
+    the kernel engine's kernel, and serves the CPU's values and ids."""
+    _need_card()
+    from repro_torch.core.engines import select_engine
+    rng = np.random.default_rng(72)
+    T = rng.standard_normal((3000, 24)).astype(np.float32)
+    U = rng.standard_normal((48, 24)).astype(np.float32)
+    U[16:32] = 0.0
+    U[16:32, :3] = 1.0
+    card, cpu = _card_and_cpu_servers(T)
+    for i in range(0, 48, 16):
+        picks = [select_engine(s.ctx, U[i:i + 16]).name for s in (card, cpu)]
+        assert picks[0] == ("topk_mips" if picks[1] == "norm"
+                            else picks[1])
+    before = topk_mips.launches
+    got, want = (s.query(U, 10, method="auto") for s in (card, cpu))
+    assert topk_mips.launches > before
+    assert_topk_equal((torch.from_numpy(got.values),
+                       torch.from_numpy(got.indices)),
+                      (torch.from_numpy(want.values),
+                       torch.from_numpy(want.indices)))
+    assert card.stats["topk_mips"].n_queries == cpu.stats["norm"].n_queries
+    assert card.stats["ta"].n_queries == cpu.stats["ta"].n_queries == 16
+
+
+@pytest.mark.parametrize("forced,rung", [
+    ({"bta": 10.0, "norm": 1e-9}, "to_norm"),
+    ({"bta": 10.0, "norm": 10.0}, "to_budgeted"),
+])
+def test_forced_ladder_rungs_on_the_card_match_the_cpu(forced, rung):
+    """The same forced cost model takes the same rung on both devices;
+    the budgeted rung's values, ids and certificate bounds agree, and
+    ``n_uncertified`` counts the same queries."""
+    _need_card()
+    from repro_torch.serving.server import AdmissionPolicy
+    rng = np.random.default_rng(73)
+    T = (rng.standard_normal((4000, 16))
+         / np.sqrt(1.0 + np.arange(4000))[:, None]).astype(np.float32)
+    U = rng.standard_normal((16, 16)).astype(np.float32)
+    servers = _card_and_cpu_servers(
+        T, policy=AdmissionPolicy(degrade_budget=64))
+    out = []
+    for s in servers:
+        s._cost_ewma.update(forced)
+        out.append(s.query(U, 10, method="bta", deadline_ms=50.0))
+    card, cpu = servers
+    assert card.stats["bta"].degradations == cpu.stats["bta"].degradations \
+        == {rung: 1}
+    assert card.stats["bta"].n_uncertified == cpu.stats["bta"].n_uncertified
+    got, want = out
+    assert_topk_equal((torch.from_numpy(got.values),
+                       torch.from_numpy(got.indices)),
+                      (torch.from_numpy(want.values),
+                       torch.from_numpy(want.indices)))
+    np.testing.assert_allclose(got.upper, want.upper, rtol=1e-6)
+    for f in ("n_scored", "depth"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    shed = card.query(U, 10, method="bta", deadline_ms=0.0)
+    assert (shed.indices == -1).all() and (shed.upper == np.inf).all()

@@ -111,7 +111,10 @@ def test_merge_topk_sorted_carry_wins_ties():
 
 
 def test_registry_names_and_aliases():
-    assert engine_names() == ["bta", "naive", "norm", "ta", "topk_mips"]
+    assert engine_names() == ["auto", "bta", "fagin", "naive", "norm",
+                              "partial", "ta", "topk_mips"]
+    assert [e.name for e in list_engines() if e.has_executable] == [
+        "bta", "naive", "norm", "ta", "topk_mips"]
     assert get_engine("pallas").name == "topk_mips"
     assert get_engine("threshold").name == "ta"
     assert get_engine("ta").layout == "list_major"
@@ -121,12 +124,13 @@ def test_registry_names_and_aliases():
     assert [e.name for e in list_engines(backend="cuda")] == ["topk_mips"]
     assert [e.name for e in list_engines(needs_index=False)] == ["naive"]
     assert {e.name for e in list_engines() if e.supports_budget} == {
-        "bta", "naive", "norm", "ta"}
-    for name in ("auto", "norm_sharded", "fagin", "partial"):
-        with pytest.raises(ValueError, match=r"registered: \['bta', "
-                                             r"'naive', 'norm', 'ta', "
-                                             r"'topk_mips'\]"):
-            get_engine(name)
+        "auto", "bta", "naive", "norm", "ta"}
+    assert [e.name for e in list_engines(backend="numpy")] == [
+        "fagin", "partial"]
+    with pytest.raises(ValueError, match=r"registered: \['auto', 'bta', "
+                                         r"'fagin', 'naive', 'norm', "
+                                         r"'partial', 'ta', 'topk_mips'\]"):
+        get_engine("norm_sharded")
 
 
 def test_engines_run_on_a_carried_index():
@@ -194,8 +198,8 @@ def test_server_alias_and_budget_match_reference(servers):
 
 def test_server_validation_and_later_slices(servers):
     _, srv, U = servers
-    with pytest.raises(ValueError, match="unknown engine 'auto'"):
-        srv.query(U, 5, method="auto")        # a later slice
+    with pytest.raises(ValueError, match="unknown engine 'norm_sharded'"):
+        srv.query(U, 5, method="norm_sharded")   # a later slice
     with pytest.raises(ValueError, match="k must be"):
         srv.query(U, 0, method="naive")
     with pytest.raises(ValueError, match="budget must be"):
@@ -206,8 +210,8 @@ def test_server_validation_and_later_slices(servers):
     bad[1, 0] = np.nan
     with pytest.raises(ValueError, match="row 1"):
         srv.query(bad, 5, method="naive")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.query(U, 5, method="naive", deadline_ms=5.0)
+    with pytest.raises(ValueError, match="deadline_ms must be"):
+        srv.query(U, 5, method="naive", deadline_ms=-1.0)
     for call in (lambda: srv.add_targets(U[:1]),
                  lambda: srv.delete_targets([0]),
                  lambda: srv.update_targets([0], U[:1])):
@@ -215,8 +219,6 @@ def test_server_validation_and_later_slices(servers):
             call()
     with pytest.raises(NotImplementedError, match="streaming"):
         TopKServer(srv.model, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="admission"):
-        TopKServer(srv.model, policy=object(), device="cpu")
 
 
 def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):
@@ -225,10 +227,14 @@ def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):
     srv = TopKServer(model, max_batch=8, block_size=64, device="cpu")
     before = topk_mips.launches
     srv.warmup(5, batch_sizes=(1, 8))
-    assert srv.available_engines() == ["bta", "naive", "norm", "ta",
-                                       "topk_mips"]
-    for name in srv.available_engines():
+    assert srv.available_engines() == ["auto", "bta", "fagin", "naive",
+                                       "norm", "partial", "ta", "topk_mips"]
+    # the default warmup primes every executable engine, and only them
+    warmed = ["bta", "naive", "norm", "ta", "topk_mips"]
+    for name in warmed:
         assert srv.cost_table.predict(name, 8, "", granular_only=True) > 0
+    assert {key.split("|")[0] for key in srv.cost_table.snapshot()} == set(
+        warmed)
     assert topk_mips.launches == before       # CPU tensors: plain version
     path = tmp_path / "costs.json"
     srv.cost_table.save(path)
