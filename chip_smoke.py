@@ -100,7 +100,28 @@ checkout. In order, it
     x 50) through ``fagin``, ``partial`` and ``ta``: equal values, and
     ``partial``'s ``n_scored`` equal to ``ta``'s query for query, with
     each one's host time;
-12. prints one ``{"kernels": [...]}`` line and, last, the device line
+12. the streaming tier at LSHTC-like: a ``TopKServer`` with
+    ``delta_capacity`` 256 warmed for ``topk_mips``, then, with the
+    counters set to 0 just before and read just after, 64-query requests
+    between mutation batches — pristine, 200 inserts, 50 updates, 100
+    deletes (38 updates and the 100 deletes kill all of query 0's top
+    138, so its fetch climbs 42 -> 138 -> 522, past kernel B1's
+    shared-memory carry), one ``bta`` chunk (B4), the append that fills
+    the delta (a synchronous compaction), a ``compact_async`` build with
+    requests during it, and a build failed through
+    ``faults.injected("compaction.build")`` then healed by a retry. Every
+    result is held against a dense top-K over the live rows on the card;
+    the first 4 queries of each request also run through the same
+    schedule on a CPU catalogue, whose values, ids, ``n_scored``,
+    ``depth`` and ``QueryInfo`` must equal the card's; after each build
+    the version must be the expected one and
+    ``engine_compiles_total`` 0. It prints us/query per request (median
+    of 3), the compactions' seconds, the latency during the build and the
+    launches, then holds B1 at ``k = 522`` against its plain version
+    (timed, with ``torch.topk`` over the full product) and B4 at the
+    ``bta`` chunk's first tail block (timed): two rows of the kernels
+    line;
+13. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -169,6 +190,12 @@ F16_RTOL, F16_ATOL_OF_MAX = 2e-3, 1e-3
 # table) and the query tower (mean over the embedding table)
 B5_CALLS = {"embedding_bag[sum,d=1]": ("linear d=1", "sum"),
             "embedding_bag[mean,d=10]": ("embed d=10", "mean")}
+# The streaming phase: the server's delta capacity, the k its escalation
+# ladder reaches at K = 10 (k + 4 * 128, past the kernel's shared-memory
+# carry of 256), and the most requests timed during the background build
+STREAM_DELTA = 256
+STREAM_LADDER_K = 522
+STREAM_DURING_MAX = 64
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -1188,6 +1215,249 @@ def ladder_path(servers, U_all, results, dev) -> None:
           f"{st.req_p50_us:.1f}", flush=True)
 
 
+def streaming_path(servers, U_all, dev):
+    """Step 12 of the module docstring. Returns the two rows of the
+    kernels line it adds (B1 at ``k = 522``, B4 at this phase's ``bta``
+    tail block)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import SegmentedCatalogue, faults, get_engine
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    from repro_torch.serving.server import TopKServer
+    t_phase = time.perf_counter()
+    base = servers[LSH]
+    T_host = base.ctx.targets.cpu().numpy()
+    M, r = T_host.shape
+    U = U_all[LSH][:BATCH]
+    U_dev = torch.from_numpy(U).to(dev)
+    rng = np.random.default_rng(SEED + 21)
+    t0 = time.perf_counter()
+    srv = TopKServer(base.model, max_batch=BATCH, device=dev,
+                     delta_capacity=STREAM_DELTA)
+    srv.warmup(K, batch_sizes=(BATCH,), engines=["topk_mips"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cat = srv.catalogue
+    cpu = SegmentedCatalogue(T_host, delta_capacity=STREAM_DELTA,
+                             block_size=srv.block_size, device="cpu")
+    print(f"{LSH} streaming server (delta_capacity {STREAM_DELTA}) built and "
+          f"warmed for topk_mips in {warm_s:.1f} s", flush=True)
+
+    def new_rows(n):
+        """Perturbed copies of catalogue rows: the catalogue's norms."""
+        pick = rng.integers(M, size=n)
+        noise = rng.standard_normal((n, r)).astype(np.float32)
+        return (T_host[pick] + 0.1 * np.abs(T_host[pick]).mean()
+                * noise).astype(np.float32)
+
+    def oracle_check(res, label):
+        """Values and ids against a dense top-K over the live rows."""
+        rows, gids = cat.as_dense()
+        s = U_dev @ torch.from_numpy(rows).to(dev).T
+        ov, pos = torch.topk(s, K, dim=1)
+        og = torch.from_numpy(gids).to(dev)[pos]
+        gv = torch.from_numpy(res.values).to(dev)
+        gi = torch.from_numpy(res.indices).to(dev).long()
+        check(bool(torch.isfinite(gv).all())
+              and torch.allclose(gv, ov, rtol=RTOL, atol=ATOL),
+              f"streaming {label}: values differ from the dense oracle "
+              f"(max abs err {float((gv - ov).abs().max())})")
+        check(ids_agree(ov, og, gv, gi),
+              f"streaming {label}: ids differ from the dense oracle")
+
+    def cpu_check(label):
+        """The first N_CPU_CHECK queries on the card and on the CPU: equal
+        values, ids, counts and QueryInfo."""
+        eng = get_engine("topk_mips")
+        card_res, card_info = cat.query(eng, U[:N_CPU_CHECK], K)
+        cpu_res, cpu_info = cpu.query(eng, U[:N_CPU_CHECK], K)
+        cv = card_res.values.cpu()
+        check(torch.allclose(cv, cpu_res.values, rtol=RTOL, atol=ATOL)
+              and ids_agree(cpu_res.values, cpu_res.indices.long(), cv,
+                            card_res.indices.cpu().long()),
+              f"streaming {label}: the card differs from the CPU")
+        for f in ("n_scored", "depth"):
+            check(torch.equal(getattr(card_res, f).cpu(),
+                              getattr(cpu_res, f)),
+                  f"streaming {label}: {f} on the card "
+                  f"{getattr(card_res, f).tolist()} != on the CPU "
+                  f"{getattr(cpu_res, f).tolist()}")
+        check(dataclasses.astuple(card_info) == dataclasses.astuple(cpu_info),
+              f"streaming {label}: QueryInfo {card_info} != {cpu_info}")
+        return card_info
+
+    rounds = {}
+
+    def serve(label, method="topk_mips", reps=3):
+        """``reps`` timed 64-query requests; each result checked."""
+        st_lat = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            res = srv.query(U, K, method=method)
+            st_lat.append(1e6 * (time.perf_counter() - t) / BATCH)
+            oracle_check(res, label)
+        rounds[label] = st_lat
+        return res
+
+    def both(fn):
+        fn(srv)
+        fn(cpu)
+
+    def after_build(label, version):
+        check(cat.version == version and cpu.version == version,
+              f"streaming {label}: versions {cat.version}/{cpu.version}, "
+              f"want {version}")
+        check(cat.stats.engine_compiles_total == 0,
+              f"streaming {label}: {cat.stats.engine_compiles_total} kernel "
+              "library loads in compaction builds")
+
+    # q0's top 138 of the base: 38 updated + 100 deleted kill all of them,
+    # so at k = 10 its fetch climbs 42 -> 138 -> 522 (dropped 138 > 128)
+    top = np.argsort(-(T_host.astype(np.float64) @ U[0].astype(np.float64)),
+                     kind="stable")[:138]
+    others = np.setdiff1d(rng.choice(M, 64, replace=False), top)[:12]
+    upd_gids = np.concatenate([top[:38], others])
+    upd_rows = new_rows(len(upd_gids))
+    ins_rows = new_rows(200)
+
+    torch.cuda.synchronize()
+    topk_mips.launches = gather_scores.launches = 0
+    topk_mips.path_launches = dict.fromkeys(topk_mips.path_launches, 0)
+    t_main = time.perf_counter()
+    serve("pristine")
+    info = {"pristine": cpu_check("pristine")}
+    both(lambda c: c.add_targets(ins_rows))
+    serve("insert 200")
+    info["insert 200"] = cpu_check("insert 200")
+    both(lambda c: c.update_targets(upd_gids, upd_rows))
+    serve("update 50")
+    info["update 50"] = cpu_check("update 50")
+    both(lambda c: c.delete_targets(top[38:]))
+    serve("delete 100")
+    info["delete 100"] = cpu_check("delete 100")
+    check(info["delete 100"].retried
+          and info["delete 100"].overfetch_k == STREAM_LADDER_K,
+          f"streaming: the ladder stopped at {info['delete 100']}, not "
+          f"{STREAM_LADDER_K}")
+    b4_before = gather_scores.launches
+    t = time.perf_counter()
+    serve("bta chunk", method="bta", reps=1)
+    bta_s = time.perf_counter() - t
+    bta_launches = gather_scores.launches - b4_before
+    check(bta_launches > 0, "streaming: the bta chunk launched no B4")
+    bta_ctx = srv.ctx
+    # fill the delta: the append after 256 rows compacts synchronously
+    n_fill = STREAM_DELTA - cat.delta_occupancy + 1
+    rows = new_rows(n_fill)
+    both(lambda c: c.add_targets(rows))
+    after_build("sync compaction", 1)
+    sync_s = cat.stats.last_compaction_s
+    serve("after sync compaction")
+    info["after sync compaction"] = cpu_check("after sync compaction")
+    # a background build with queries during it (default CUDA stream:
+    # they serialise behind the build's work and stay exact)
+    rows = new_rows(10)
+    both(lambda c: c.add_targets(rows))
+    cat.compact_async = True
+    cat.compact(wait=False)
+    during = []
+    while len(during) < STREAM_DURING_MAX:
+        with cat._lock:
+            building = cat._build_thread is not None
+        if not building:
+            break
+        t = time.perf_counter()
+        res = srv.query(U, K, method="topk_mips")
+        during.append(1e6 * (time.perf_counter() - t) / BATCH)
+        oracle_check(res, "during the background build")
+    cat.flush()
+    cpu.compact()
+    after_build("async compaction", 2)
+    async_s = cat.stats.last_compaction_s
+    serve("after async compaction")
+    info["after async compaction"] = cpu_check("after async compaction")
+    # a build failed by the fault point, then healed by a retry
+    rows = new_rows(5)
+    both(lambda c: c.add_targets(rows))
+    for c in (cat, cpu):
+        with faults.injected("compaction.build", error=RuntimeError):
+            try:
+                c.compact(wait=True)
+            except RuntimeError:
+                pass
+            else:
+                fail("streaming: the injected build failure did not raise")
+    check(cat.stats.n_failed_compactions == 1 and cat.l0_chain_len == 1,
+          "streaming: the failed build left no retained chain")
+    after_build("failed build", 2)
+    serve("after the failed build")
+    info["after the failed build"] = cpu_check("after the failed build")
+    for c in (cat, cpu):
+        c.compact(wait=True)
+    after_build("retried build", 3)
+    retry_s = cat.stats.last_compaction_s
+    serve("after the retry")
+    info["after the retry"] = cpu_check("after the retry")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    b1 = topk_mips.launches
+    b1_paths = dict(topk_mips.path_launches)
+    b4 = gather_scores.launches
+    check(b1 > 0 and b1_paths["global_carry"] > 0,
+          f"streaming: B1 launches {b1} {b1_paths}: the k > 256 path did "
+          "not run")
+
+    gpu = gpu_name_and_power()
+    for label, lat in rounds.items():
+        print(f"  streaming {label:>26s}: {np.median(lat):9.1f} us/query "
+              f"(median of {len(lat)}; {gpu})"
+              + (f" QueryInfo {info[label]}" if label in info else ""),
+              flush=True)
+    print(f"streaming: compactions sync {sync_s:.2f} s, async {async_s:.2f} "
+          f"s, retried after a failure {retry_s:.2f} s; {len(during)} "
+          f"requests during the async build at median "
+          f"{np.median(during) if during else float('nan'):.1f} us/query "
+          f"(pristine {np.median(rounds['pristine']):.1f}); bta chunk "
+          f"{bta_s:.2f} s with {bta_launches} B4 launches; "
+          f"mutation_stats {srv.mutation_stats}; launches B1 {b1} "
+          f"{b1_paths}, B4 {b4}; main path {main_s:.1f} s ({gpu})",
+          flush=True)
+
+    # B1 at the ladder's k = 522 against its plain version, LSHTC-like
+    k522 = compare_modes(base.ctx.catalog, U_dev, STREAM_LADDER_K,
+                         f"{LSH} k={STREAM_LADDER_K}", timing=True)
+    lib_ms = timed_ms_cold(lambda: torch.topk(
+        torch.matmul(U_dev, base.ctx.catalog.T_sorted.T), STREAM_LADDER_K),
+        10)
+    print(f"  {LSH} library torch.topk(torch.matmul(U, T.T), "
+          f"{STREAM_LADDER_K}): {lib_ms:.4g} ms", flush=True)
+    mode = "two_level_batched"
+    rec = k522[mode]
+    b1_row = {"name": f"topk_mips[{mode},k={STREAM_LADDER_K}]",
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/topk_mips.cu",
+              "replaces": REPLACES[mode],
+              "launches": b1_paths["global_carry"],
+              "max_abs_err": max(v["max_abs_err"] for v in k522.values()),
+              **{key: rec[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+              "library_ms": lib_ms}
+    # B4 at the streaming bta chunk's first tail block
+    first_tail = bta_ctx.layout("list_major").prefix_steps(
+        bta_ctx.block_size)
+    ids = tail_ids(bta_ctx.index, U_dev, bta_ctx.block_size, first_tail)
+    b4_rec = compare_gather([("streaming bta tail block", bta_ctx.targets,
+                              ids, U_dev, True)])["streaming bta tail block"]
+    b4_stream = b4_row("gather_scores[streaming bta]", b4_rec, bta_launches,
+                       b4_rec["max_abs_err"])
+    print(f"streaming phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [b1_row, b4_stream]
+
+
 def oracle_path(dev) -> None:
     """Step 11 of the module docstring."""
     import numpy as np
@@ -1507,6 +1777,7 @@ def run(dev, kind: str) -> None:
     auto_path(servers, U_all, results, cpu_ctxs)
     ladder_path(servers, U_all, results, dev)
     oracle_path(dev)
+    stream_rows = streaming_path(servers, U_all, dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -1534,6 +1805,7 @@ def run(dev, kind: str) -> None:
                bta_path_launches["rows"], b4_err),
         ta_row]
     kernels["kernels"].extend(recsys_rows)
+    kernels["kernels"].extend(stream_rows)
     for row in kernels["kernels"]:
         check(row["launches"] > 0,
               f"the main path launched {row['name']} 0 times")

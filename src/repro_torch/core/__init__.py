@@ -40,6 +40,16 @@ from repro_torch.core.layout import (
 from repro_torch.core.naive import (TopKResult, certificate_gaps,
                                     certified_counts, naive_topk)
 from repro_torch.core.partial import PartialTAStats, partial_threshold_topk_np
+from repro_torch.core import faults
+from repro_torch.core.segments import (
+    DEFAULT_DELTA_CAPACITY,
+    DeltaSegment,
+    QueryInfo,
+    SegmentedCatalogue,
+    SegmentStats,
+    Snapshot,
+    delta_bucket,
+)
 from repro_torch.core.seplr import (
     SepLRModel,
     from_cosine_similarity,
@@ -77,4 +87,7 @@ __all__ = [
     "layout_names", "DEFAULT_PREFIX_DEPTH",
     # robustness layer
     "certificate_gaps", "certified_counts",
+    # streaming tier, single level
+    "SegmentedCatalogue", "Snapshot", "DeltaSegment", "QueryInfo",
+    "SegmentStats", "delta_bucket", "DEFAULT_DELTA_CAPACITY", "faults",
 ]

@@ -57,10 +57,14 @@ to the catalogue's M-bucket, exactly as the reference, so results and
 pruning statistics match it field for field. ``bta`` and ``ta`` run on
 the real M: the reference pads its list arrays only so that one compiled
 executable serves every catalogue of a bucket, and its padded results
-equal the unpadded scan's. In place of the reference's trace counters,
-``topk_mips.launches`` and ``gather_scores.launches`` count the CUDA
-kernels' launches, and :attr:`EngineContext.scan_steps` counts the list
-scans' loop iterations.
+equal the unpadded scan's. ``topk_mips.launches`` and
+``gather_scores.launches`` count the CUDA kernels' launches, and
+:attr:`EngineContext.scan_steps` counts the list scans' loop iterations.
+In place of the reference's trace counters, the port counts kernel
+library loads (:func:`repro_torch.kernels._build.loads_total`, its
+compile counter): :attr:`EngineContext.trace_counts` attributes each
+engine run's delta of it to the engine, as the reference attributes its
+traces.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.blocked import (blocked_topk_batched,
                                       blocked_topk_batched_native,
                                       chunked_ta_topk_batched,
@@ -114,6 +118,24 @@ def pad_to_bucket(U: torch.Tensor) -> torch.Tensor:
     return torch.cat([U, U[b - 1:b].expand(bucket - b, U.shape[1])], dim=0)
 
 
+def note_pruning_metrics(engine: str, n: int, n_scored: int,
+                         depth_sum: int, m_live: int,
+                         per_query_us: float,
+                         sign_label: str = "") -> None:
+    """Record one served batch's pruning-efficiency metrics into the
+    observability registry: ``n_scored`` and ``depth`` totals plus the
+    scored FRACTION of the live catalogue (DESIGN.md §14). The serving
+    layer calls it after the result reached the host."""
+    obs.on_batch_served(engine, n, n_scored, depth_sum, m_live,
+                        per_query_us, sign_label)
+
+
+def _loads_total() -> int:
+    # imported here: the kernels package imports from core
+    from repro_torch.kernels._build import loads_total
+    return loads_total()
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
@@ -149,12 +171,15 @@ class CostTable:
         a = self.alpha
         with self._lock:
             prev = self._ewma.get(key)
-            self._ewma[key] = (per_query_s if prev is None
-                               else (1 - a) * prev + a * per_query_s)
+            ewma = (per_query_s if prev is None
+                    else (1 - a) * prev + a * per_query_s)
+            self._ewma[key] = ewma
             prev_e = self._engine.get(engine)
             self._engine[engine] = (per_query_s if prev_e is None
                                     else (1 - a) * prev_e + a * per_query_s)
             self.n_observations += 1
+        # the folded EWMA (the router's current belief), exported live
+        obs.on_cost_observation(engine, bucket, label, ewma)
 
     def predict(self, engine: str, bucket: int, label: str,
                 granular_only: bool = False) -> Optional[float]:
@@ -229,18 +254,26 @@ class EngineContext:
         and stays off below that; ``0`` disables it; any other value is
         honoured (clamped to ``M``). See :attr:`resolved_prefix_depth`.
       cost_table: measured-cost table shared with the serving layer.
+      version: snapshot version of the catalogue (the streaming tier
+        builds one context per compacted snapshot).
       device: where the catalogue and every derived array live
         (``None`` = ``cuda``).
 
     ``scan_steps`` counts the list scans' loop iterations — each one host
     read — by phase (``"prefix"``, ``"tail"``, ``"gather"``).
+    ``trace_counts`` counts, per engine, the kernel library loads its runs
+    on this context caused (the port's compiles: 0 once the libraries are
+    loaded in the process).
     """
 
     def __init__(self, targets, index: Optional[TopKIndex] = None,
                  block_size: int = 256, max_blocks: int = -1,
                  ta_chunk: int = 32, prefix_depth: Optional[int] = None,
-                 cost_table: Optional[CostTable] = None, device=None):
+                 cost_table: Optional[CostTable] = None, version: int = 0,
+                 device=None):
         self.device = resolve_device(device)
+        self.version = int(version)
+        self.trace_counts: Dict[str, int] = {}
         self.targets = torch.as_tensor(targets, dtype=torch.float32,
                                        device=self.device).contiguous()
         self.cost_table = cost_table
@@ -323,6 +356,11 @@ class EngineContext:
             self._layouts[name] = lay
         return lay
 
+    @property
+    def prepared_engines(self) -> List[str]:
+        """Engines whose arguments this context has built."""
+        return list(self._engine_args)
+
     def engine_args(self, engine: "Engine"):
         """``engine``'s prepared arguments at the catalogue's M-bucket,
         built once per context."""
@@ -349,8 +387,13 @@ class EngineContext:
                     if engine.batch_config is not None else ())
         b = U.shape[0]
         U = pad_to_bucket(U).contiguous()
+        before = _loads_total()
         res = engine.run_args(self, self.engine_args(engine), U, int(k),
                               budget, bcfg)
+        delta = _loads_total() - before
+        if delta:
+            self.trace_counts[engine.name] = (
+                self.trace_counts.get(engine.name, 0) + delta)
         if U.shape[0] != b:
             res = TopKResult(*(x[:b] for x in res))
         return res

@@ -6,19 +6,33 @@ directory git ignores), named by the hash of the source, so an unchanged
 source is compiled once per checkout. Nothing is compiled or loaded at
 import time: the CPU tests import every module, and there is no ``nvcc``
 without the CUDA toolkit.
+
+**The port's compile counter.** PyTorch runs eagerly, so the port has no
+trace cache whose misses the reference counts (its ``trace_counts``).
+What the port compiles is a kernel library, and each miss of
+:func:`load` (a library built, or found built, and bound in this
+process) is the port's compile: it adds one to :func:`loads_total` and
+fires ``obs.on_engine_trace`` with the library's name.
+``EngineContext.trace_counts``, ``TopKServer.trace_counts`` and
+``SegmentStats.engine_compiles_total`` attribute deltas of
+:func:`loads_total` as the reference attributes traces, so a warmed
+server's compactions count 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Dict
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -81,7 +95,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "topk_mips": {
         "topk_mips_score_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
-        "topk_mips_walk_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        "topk_mips_walk_launch": ([_P] * 9 + [_I] * 7 + [_P], _I),
         "topk_mips_error_string": ([_I], ctypes.c_char_p),
     },
     "gather_scores": {
@@ -100,12 +114,28 @@ SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` (built if needed), with
-    the C signatures of :data:`SIGNATURES` set."""
-    lib = ctypes.CDLL(str(build(name).path))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
+    the C signatures of :data:`SIGNATURES` set; loaded once per process.
+    Each miss counts as one compile (see the module docstring)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(str(build(name).path))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LIBS[name] = lib
+    obs.on_engine_trace(name)
     return lib
+
+
+def loads_total() -> int:
+    """Library loads in this process (each library loads once)."""
+    with _LOCK:
+        return len(_LIBS)

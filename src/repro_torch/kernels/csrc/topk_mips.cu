@@ -53,7 +53,12 @@
 // max) per load; with the K-th best fixed between merges, one ballot marks
 // every visited tile up to the next tile whose max beats the K-th best,
 // and only that tile's list is merged (its entries strictly above the
-// K-th best, placed by rank: the carry wins ties).
+// K-th best, placed by rank: the carry wins ties). The warp's carry, its
+// merge buffer and the tile's candidates (4 k + 2 kk words) sit in shared
+// memory up to k = kMaxSmemK; above it the same layout lives in a global
+// scratch the caller allocates, one region per query. That path is slow
+// (every carry access goes to L1/L2) but takes any k up to the catalogue,
+// which the streaming tier's over-fetch ladder reaches (k + 4^n * 32).
 
 #include <climits>
 #include <cstdint>
@@ -72,6 +77,7 @@ constexpr size_t kScoreBytes = 72 * 1024;   // 64 queries x (256 + 4) rows fit
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr size_t kBarBytes = 128;      // the mbarriers, before the ring
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxSmemK = 256;         // phase 2: largest shared carry
 
 enum Mode { TWO_LEVEL_BATCHED = 0, TWO_LEVEL_TILE = 1, SINGLE_LEVEL = 2 };
 
@@ -492,14 +498,19 @@ gate_walk_kernel(const float* __restrict__ bounds,
                  const int* __restrict__ lids,
                  const float* __restrict__ tmax, float* __restrict__ out_vals,
                  int* __restrict__ out_idx, int* __restrict__ out_stats,
-                 int B, int n_blocks, int block_m, int superblock, int k,
-                 int kk, int mode) {
+                 float* gcarry, int B, int n_blocks, int block_m,
+                 int superblock, int k, int kk, int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWalkWarps + warp;
   if (b >= B) return;                 // no block-wide barrier below
-  float* cv = reinterpret_cast<float*>(smem) + (size_t)warp * (4 * k + 2 * kk);
+  // the warp's buffers: shared memory, or its region of the global
+  // scratch for k > kMaxSmemK (__syncwarp orders global accesses too)
+  const size_t words = 4 * (size_t)k + 2 * (size_t)kk;
+  float* cv = gcarry != nullptr
+                  ? gcarry + (size_t)b * words
+                  : reinterpret_cast<float*>(smem) + (size_t)warp * words;
   int* ci = reinterpret_cast<int*>(cv + k);
   float* nv = reinterpret_cast<float*>(ci + k);
   int* ni = reinterpret_cast<int*>(nv + k);
@@ -646,6 +657,7 @@ cudaError_t launch_score(const Config& c, dim3 grid, cudaStream_t stream,
 // cudaError_t of its launch (0 = launched) and neither synchronises; `live`
 // may be null in SINGLE_LEVEL mode. The caller allocates the scratch:
 // lvals/lids [B, n_blocks, kk] and tmax [B, n_blocks], kk = min(k, block_m),
+// for k > 256 also carry [B, 4 k + 2 kk] (4-byte words; null otherwise),
 // and runs phase 1 before phase 2 on one stream. T must be 16-byte
 // aligned.
 
@@ -683,22 +695,28 @@ extern "C" int topk_mips_score_launch(const float* T, const float* U,
   return (int)err;
 }
 
-// Phase 2: one warp per query walks the gate over the phase-1 scratch.
+// Phase 2: one warp per query walks the gate over the phase-1 scratch;
+// its carry is in shared memory for k <= 256, in `carry` above.
 extern "C" int topk_mips_walk_launch(const float* bounds, const int* live,
                                      const float* lvals, const int* lids,
                                      const float* tmax, float* vals,
-                                     int* idx, int* stats, int B,
-                                     int n_blocks, int block_m,
+                                     int* idx, int* stats, float* carry,
+                                     int B, int n_blocks, int block_m,
                                      int superblock, int k, int kk, int mode,
                                      void* stream) {
-  if (mode < 0 || mode > SINGLE_LEVEL || B <= 0 || k <= 0 || k > 256 ||
-      kk <= 0 || kk > k || block_m <= 0 || n_blocks < 0)
+  const bool global_carry = k > kMaxSmemK;
+  if (mode < 0 || mode > SINGLE_LEVEL || B <= 0 || k <= 0 || kk <= 0 ||
+      kk > k || block_m <= 0 || n_blocks < 0 ||
+      (global_carry && carry == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kWalkWarps * (4 * (size_t)k + 2 * kk);
+  const size_t smem =
+      global_carry ? 0
+                   : sizeof(float) * kWalkWarps * (4 * (size_t)k + 2 * kk);
   gate_walk_kernel<<<(B + kWalkWarps - 1) / kWalkWarps, kWalkWarps * 32,
                      smem, (cudaStream_t)stream>>>(
-      bounds, live, lvals, lids, tmax, vals, idx, stats, B, n_blocks,
-      block_m, superblock, k, kk, mode);
+      bounds, live, lvals, lids, tmax, vals, idx, stats,
+      global_carry ? carry : nullptr, B, n_blocks, block_m, superblock, k,
+      kk, mode);
   return (int)cudaGetLastError();
 }
 

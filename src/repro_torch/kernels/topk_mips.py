@@ -40,10 +40,12 @@ NEG_INF = -1e30
 
 MODES = ("two_level_batched", "two_level_tile", "single_level")
 
-#: Kernel limits (the wrapper raises above them): k bounds the gate walk's
-#: shared-memory carry, block_m the tile-score buffer and the per-tile
-#: selection, R the shared-memory ring and query copy.
-MAX_K = 256
+#: Kernel limits (the wrapper raises above them): block_m bounds the
+#: tile-score buffer and the per-tile selection, R the shared-memory ring
+#: and query copy. k has no limit: the gate walk keeps its carry in shared
+#: memory up to SMEM_K and in a global scratch above it (slower; the
+#: streaming tier's over-fetch ladder reaches such k).
+SMEM_K = 256
 MAX_BLOCK_M = 1024
 MAX_R = 4096
 
@@ -124,12 +126,15 @@ SCRATCH_BYTES = 256 << 20
 
 
 def query_slices(B: int, n_blocks: int, kk: int,
-                 budget: int = SCRATCH_BYTES) -> list:
+                 budget: int = SCRATCH_BYTES, k: int = 0) -> list:
     """``(b0, b1)`` query slices whose scratch — ``kk`` (value, row) pairs
-    and one maximum per (query, tile) — stays within ``budget`` bytes (one
-    query at the least); slices hold whole phase-1 groups of 64 where they
-    can."""
+    and one maximum per (query, tile), plus the gate walk's global carry
+    of ``4 k + 2 kk`` words when ``k > SMEM_K`` — stays within ``budget``
+    bytes (one query at the least); slices hold whole phase-1 groups of
+    64 where they can."""
     per_query = n_blocks * (8 * kk + 4)
+    if k > SMEM_K:
+        per_query += 4 * (4 * k + 2 * kk)
     rows = max(1, budget // max(per_query, 1))
     if rows >= 64:
         rows -= rows % 64
@@ -160,7 +165,7 @@ class KernelPhases:
         dev = T_sorted.device
         self.n_blocks = M_pad // block_m
         self.kk = min(k, block_m)
-        self.slices = query_slices(B, self.n_blocks, self.kk)
+        self.slices = query_slices(B, self.n_blocks, self.kk, k=k)
         rows = self.slices[0][1]
         self.operands = (T_sorted, U, tile_bounds, live)
         self.shape = (R, block_m, superblock, k,
@@ -174,11 +179,17 @@ class KernelPhases:
         self.lids = torch.empty_like(self.lvals, dtype=torch.int32)
         self.tmax = torch.empty((rows, self.n_blocks), dtype=torch.float32,
                                 device=dev)
+        # the gate walk's carry, merge buffer and candidates per query,
+        # in global memory past SMEM_K (4-byte words; floats and ints)
+        self.carry = (torch.empty((rows, 4 * k + 2 * self.kk),
+                                  dtype=torch.float32, device=dev)
+                      if k > SMEM_K else None)
 
     @property
     def scratch_bytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.lvals, self.lids, self.tmax))
+                   for t in (self.lvals, self.lids, self.tmax, self.carry)
+                   if t is not None)
 
     def _raise_on(self, err: int, phase: str) -> None:
         if err != 0:
@@ -217,7 +228,8 @@ class KernelPhases:
                 self._ptr(bounds, b0), self._ptr(live, b0),
                 self.lvals.data_ptr(), self.lids.data_ptr(),
                 self.tmax.data_ptr(), self._ptr(self.vals, b0),
-                self._ptr(self.idx, b0), self._ptr(self.stats, b0), b1 - b0,
+                self._ptr(self.idx, b0), self._ptr(self.stats, b0),
+                self._ptr(self.carry, 0), b1 - b0,
                 self.n_blocks, block_m, superblock, k, self.kk, mode,
                 self._stream())
         self._raise_on(err, "walk")
@@ -232,10 +244,9 @@ class KernelPhases:
 
 def _check_cuda(T_sorted, U, tile_bounds, live, k, block_m):
     R = T_sorted.shape[1]
-    if k > MAX_K or block_m > MAX_BLOCK_M or R > MAX_R:
-        raise ValueError(f"kernel limits: k <= {MAX_K} (got {k}), block_m "
-                         f"<= {MAX_BLOCK_M} (got {block_m}), R <= {MAX_R} "
-                         f"(got {R})")
+    if block_m > MAX_BLOCK_M or R > MAX_R:
+        raise ValueError(f"kernel limits: block_m <= {MAX_BLOCK_M} (got "
+                         f"{block_m}), R <= {MAX_R} (got {R})")
     f32 = (T_sorted, U, tile_bounds)
     if any(t.dtype != torch.float32 for t in f32) or (
             live is not None and live.dtype != torch.int32):
@@ -278,10 +289,16 @@ def topk_mips(T_sorted: torch.Tensor, U: torch.Tensor,
     out = KernelPhases(T_sorted, U, tile_bounds, live, k, block_m, mode,
                        superblock, num_real).run()
     topk_mips.launches += 1
+    topk_mips.path_launches[CARRIES[k > SMEM_K]] += 1
     return out
 
 
+#: The gate walk's carry: in shared memory up to SMEM_K, global above.
+CARRIES = ("shared_carry", "global_carry")
+
 #: Calls that launched the CUDA kernel in this process, one per query
 #: batch (its two phases together; plain-version calls on CPU tensors are
-#: not launches). Callers reset it to 0 to count a run.
+#: not launches), and the same calls by where the walk kept its carry.
+#: Callers reset them to 0 to count a run.
 topk_mips.launches = 0
+topk_mips.path_launches = dict.fromkeys(CARRIES, 0)

@@ -16,9 +16,17 @@ each chunk down an admission ladder — the requested engine, then
 ``norm``, then a budgeted ``norm`` scan with certificates, then shed —
 recorded under the requested method.
 
-The catalogue is a static snapshot: the reference's never-mutated fast
-path. Streaming mutations and sharded catalogues belong to a later slice
-of the port and raise ``NotImplementedError``.
+**Streaming mutations** (DESIGN.md §9): the catalogue is a
+:class:`repro_torch.core.segments.SegmentedCatalogue` — an immutable base
+snapshot (the EngineContext every engine runs against) plus a delta
+buffer and tombstones. :meth:`TopKServer.add_targets` /
+:meth:`delete_targets` / :meth:`update_targets` mutate it without an
+index rebuild and without giving up exactness; a threshold-triggered
+compaction folds the mutations into a fresh snapshot on the device under
+the next version. A never-mutated server runs exactly the static path.
+The LSM ladder (``n_shards > 0``) comes with a later slice and raises.
+
+Every seam reports into :mod:`repro_torch.obs`, as the reference's does.
 
 ``TwoStageRanker`` is the production recsys pattern: exact SEP-LR top-N
 retrieval followed by full-model re-ranking of the N retrieved candidates.
@@ -26,7 +34,6 @@ retrieval followed by full-model re-ranking of the N retrieved candidates.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import threading
 import time
@@ -35,11 +42,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.engines import (CostTable, Engine, EngineContext,
                                       batch_bucket, engine_names, get_engine,
-                                      select_engine)
+                                      note_pruning_metrics, select_engine)
+from repro_torch.core.index import TopKIndex
 from repro_torch.core.naive import TopKResult
+from repro_torch.core.segments import SegmentedCatalogue
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.core.strategies import sign_bucket_label
 
@@ -47,15 +56,19 @@ from repro_torch.core.strategies import sign_bucket_label
 #: stable p99, bounded so a long-lived server never grows its stats.
 LATENCY_RING = 512
 
-_STREAMING = "the streaming-tier slice (ROADMAP queue A)"
+
+def _batch_hist() -> obs.Histogram:
+    return obs.Histogram("serve_batch_latency_us",
+                         "per-query us of one served batch",
+                         buckets=obs.LATENCY_BUCKETS_US,
+                         ring=LATENCY_RING)
 
 
-def _ring() -> collections.deque:
-    return collections.deque(maxlen=LATENCY_RING)
-
-
-def _percentile(ring: collections.deque, q: float) -> float:
-    return float(np.percentile(np.asarray(ring), q)) if ring else 0.0
+def _request_hist() -> obs.Histogram:
+    return obs.Histogram("serve_request_latency_us",
+                         "enqueue->result us of one caller request",
+                         buckets=obs.LATENCY_BUCKETS_US,
+                         ring=LATENCY_RING)
 
 
 @dataclasses.dataclass
@@ -65,12 +78,17 @@ class ServeStats:
     ``us_per_query`` is the lifetime mean; ``p50_us``/``p95_us``/``p99_us``
     are percentiles over a bounded ring of per-batch per-query latencies,
     and ``req_p50_us``/... over a ring of per-REQUEST latencies (one
-    :meth:`TopKServer.query` call, all its chunks). ``sign_batches``
-    counts served batches per sign bucket (the list engines' batch
-    specialisation). ``degradations`` counts the admission ladder's
-    decisions by rung (``to_norm``, ``to_budgeted``, ``shed``) and
-    ``n_uncertified`` the queries whose result holds an uncertified slot;
-    both are kept on the REQUESTED method's stats, while the serve
+    :meth:`TopKServer.query` call, all its chunks). The two rings are
+    :class:`repro_torch.obs.Histogram` instances (log-scale buckets for
+    export plus the bounded raw ring the exact percentiles read);
+    ``lat_us_ring``/``req_lat_us_ring`` expose the rings. They are
+    standalone instruments: ``obs.set_enabled(False)`` does not stop them.
+    ``delta_scored`` counts scores spent on the streaming delta segments.
+    ``sign_batches`` counts served batches per sign bucket (the list
+    engines' batch specialisation). ``degradations`` counts the admission
+    ladder's decisions by rung (``to_norm``, ``to_budgeted``, ``shed``)
+    and ``n_uncertified`` the queries whose result holds an uncertified
+    slot; both are kept on the REQUESTED method's stats, while the serve
     counters follow the engine that ran. Counter updates take a lock.
     """
 
@@ -78,15 +96,26 @@ class ServeStats:
     n_scored: int = 0
     total_time_s: float = 0.0
     depth_sum: int = 0
-    lat_us_ring: collections.deque = dataclasses.field(
-        default_factory=_ring, repr=False, compare=False)
-    req_lat_us_ring: collections.deque = dataclasses.field(
-        default_factory=_ring, repr=False, compare=False)
+    delta_scored: int = 0
+    lat_hist: obs.Histogram = dataclasses.field(
+        default_factory=_batch_hist, repr=False, compare=False)
+    req_lat_hist: obs.Histogram = dataclasses.field(
+        default_factory=_request_hist, repr=False, compare=False)
     sign_batches: Dict[str, int] = dataclasses.field(default_factory=dict)
     degradations: Dict[str, int] = dataclasses.field(default_factory=dict)
     n_uncertified: int = 0
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
+
+    @property
+    def lat_us_ring(self):
+        """The per-batch latency ring (the histogram's raw samples)."""
+        return self.lat_hist.ring()
+
+    @property
+    def req_lat_us_ring(self):
+        """The per-request latency ring."""
+        return self.req_lat_hist.ring()
 
     @property
     def scores_per_query(self) -> float:
@@ -97,17 +126,19 @@ class ServeStats:
         return 1e6 * self.total_time_s / max(self.n_queries, 1)
 
     def record_batch(self, n: int, n_scored: int, depth_sum: int,
-                     dt_s: float, sign_label: str = "") -> None:
+                     dt_s: float, delta_scored: int = 0,
+                     sign_label: str = "") -> None:
         """Fold one served batch in."""
         with self._lock:
             self.n_queries += n
             self.n_scored += n_scored
             self.depth_sum += depth_sum
             self.total_time_s += dt_s
+            self.delta_scored += delta_scored
             if sign_label:
                 self.sign_batches[sign_label] = (
                     self.sign_batches.get(sign_label, 0) + 1)
-            self.lat_us_ring.append(1e6 * dt_s / max(n, 1))
+        self.lat_hist.observe(1e6 * dt_s / max(n, 1))
 
     def bump_degradation(self, rung: str) -> None:
         with self._lock:
@@ -119,8 +150,7 @@ class ServeStats:
 
     def latency_percentile(self, q: float) -> float:
         """q-th percentile (0-100) of recent per-batch latencies, in us."""
-        with self._lock:
-            return _percentile(self.lat_us_ring, q)
+        return self.lat_hist.percentile(q)
 
     @property
     def p50_us(self) -> float:
@@ -137,12 +167,10 @@ class ServeStats:
     def record_request_latency(self, us: float) -> None:
         """One caller request completed ``us`` microseconds after it was
         submitted."""
-        with self._lock:
-            self.req_lat_us_ring.append(float(us))
+        self.req_lat_hist.observe(float(us))
 
     def request_percentile(self, q: float) -> float:
-        with self._lock:
-            return _percentile(self.req_lat_us_ring, q)
+        return self.req_lat_hist.percentile(q)
 
     @property
     def req_p50_us(self) -> float:
@@ -189,26 +217,38 @@ def _to_host(res: TopKResult) -> TopKResult:
 
 
 class TopKServer:
-    """Exact top-K serving over a static catalogue on ``device``
-    (``None`` = ``cuda``), under an :class:`AdmissionPolicy` (default:
-    no deadline, at most 8 chunks in flight)."""
+    """Exact top-K serving over a streaming catalogue on ``device``
+    (``None`` = ``cuda``), under an :class:`AdmissionPolicy` (default: no
+    deadline, at most 8 chunks in flight).
+
+    ``delta_capacity``, ``compact_async`` and ``max_tombstones`` configure
+    the :class:`SegmentedCatalogue` (``max_tombstones=None`` keeps its
+    default, ``2 * delta_capacity``). The cost table is shared by every
+    context a compaction builds, so measurements survive snapshot swaps.
+    """
 
     def __init__(self, model: SepLRModel, max_batch: int = 64,
-                 block_size: int = 256,
+                 block_size: int = 256, delta_capacity: int = 256,
+                 compact_async: bool = False,
                  policy: Optional[AdmissionPolicy] = None, n_shards: int = 0,
+                 max_tombstones: Optional[int] = None,
                  cost_table: Optional[CostTable] = None, device=None):
         if n_shards > 0:
             raise NotImplementedError(
-                f"n_shards > 0 (the LSM ladder) comes with {_STREAMING}")
+                "n_shards > 0 (the LSM ladder of the streaming tier) comes "
+                "with ROADMAP item A3")
         self.model = model
         self.device = resolve_device(device)
         self.cost_table = cost_table if cost_table is not None \
             else CostTable()
+        tomb = {} if max_tombstones is None \
+            else {"max_tombstones": max_tombstones}
+        self.catalogue = SegmentedCatalogue(
+            model.targets, delta_capacity=delta_capacity,
+            compact_async=compact_async, block_size=block_size,
+            cost_table=self.cost_table, device=self.device, **tomb)
         self.max_batch = max_batch
         self.block_size = block_size
-        self.ctx = EngineContext(model.targets, block_size=block_size,
-                                 cost_table=self.cost_table,
-                                 device=self.device)
         self.stats: Dict[str, ServeStats] = {}
         self.policy = policy if policy is not None else AdmissionPolicy()
         # per-engine EWMA of per-query serve seconds: the ladder's FIRST
@@ -218,6 +258,23 @@ class TopKServer:
         self._cost_ewma: Dict[str, float] = {}
         self._admit_lock = threading.Lock()
         self._inflight = 0
+
+    @property
+    def ctx(self) -> EngineContext:
+        """The CURRENT base snapshot's engine context (a compaction swaps
+        in a fresh one under the next version)."""
+        return self.catalogue.snapshot.ctx
+
+    @property
+    def index(self) -> TopKIndex:
+        return self.ctx.index
+
+    @property
+    def trace_counts(self) -> Dict[str, int]:
+        """Kernel library loads (the port's compiles) per engine on the
+        current snapshot; the catalogue's tail is plain PyTorch and
+        compiles nothing."""
+        return dict(self.ctx.trace_counts)
 
     @staticmethod
     def available_engines() -> List[str]:
@@ -229,37 +286,104 @@ class TopKServer:
         """Build every engine's lazy state ahead of traffic (index,
         layouts, kernel catalogue, the CUDA library) and prime the cost
         table, per sign bucket and, with ``budgets``, per budgeted
-        variant (the ladder's ``policy.degrade_budget`` among them); see
-        :meth:`EngineContext.warmup`."""
+        variant (see :meth:`EngineContext.warmup`); then ready the
+        over-fetched ``k`` the tombstoned path fetches, and record the
+        warm spec that each compaction readies its new snapshot with
+        before the swap."""
         sizes = tuple(batch_sizes) if batch_sizes else (1, self.max_batch)
         self.ctx.warmup(k, batch_sizes=sizes, engines=engines,
                         budgets=budgets)
+        self.catalogue.warm(k, batch_sizes=sizes, engines=engines,
+                            budgets=budgets)
+        self.catalogue.set_warm_spec(k, sizes, engines, budgets=budgets)
         return self
 
-    # -- streaming mutations: a later slice ---------------------------------
+    # -- streaming mutations (DESIGN.md §9) ---------------------------------
 
-    def add_targets(self, rows):
-        raise NotImplementedError(f"add_targets comes with {_STREAMING}")
+    def add_targets(self, rows) -> np.ndarray:
+        """Stream new items into the catalogue; returns their global ids."""
+        return self.catalogue.add_targets(rows)
 
-    def delete_targets(self, gids):
-        raise NotImplementedError(f"delete_targets comes with {_STREAMING}")
+    def delete_targets(self, gids) -> None:
+        """Tombstone items; queries exclude them immediately and exactly."""
+        self.catalogue.delete_targets(gids)
 
-    def update_targets(self, gids, rows):
-        raise NotImplementedError(f"update_targets comes with {_STREAMING}")
+    def update_targets(self, gids, rows) -> None:
+        """Replace item factors in place (same global ids)."""
+        self.catalogue.update_targets(gids, rows)
+
+    @property
+    def mutation_stats(self) -> Dict[str, float]:
+        """Delta/compaction counters, built by
+        :func:`repro_torch.obs.build_mutation_stats` against
+        :data:`repro_torch.obs.MUTATION_STATS_SCHEMA` (which documents
+        every key and raises on drift)."""
+        cat = self.catalogue
+        return obs.build_mutation_stats({
+            "n_inserts": cat.stats.n_inserts,
+            "n_deletes": cat.stats.n_deletes,
+            "n_updates": cat.stats.n_updates,
+            "n_compactions": cat.stats.n_compactions,
+            "n_failed_compactions": cat.stats.n_failed_compactions,
+            "max_delta_occupancy": cat.stats.max_delta_occupancy,
+            "delta_occupancy": cat.delta_occupancy,
+            "n_tombstones": cat.n_tombstones,
+            "snapshot_version": cat.version,
+            "num_live": cat.num_live,
+            "engine_compiles_total": cat.stats.engine_compiles_total,
+            "engine_compiles_per_compaction": (
+                cat.stats.engine_compiles_total
+                / max(cat.stats.n_compactions, 1)),
+            "headroom_compiles_total": cat.stats.headroom_compiles_total,
+            "compaction_s_total": cat.stats.compaction_s_total,
+            "last_compaction_s": cat.stats.last_compaction_s,
+            "n_build_retries": cat.stats.n_build_retries,
+            "n_forced_sync_compactions": cat.stats.n_forced_sync_compactions,
+            "n_stuck_builds": cat.stats.n_stuck_builds,
+            "max_l0_chain": cat.stats.max_l0_chain,
+            "l0_chain_len": cat.l0_chain_len,
+            "consecutive_build_failures": cat.consecutive_build_failures,
+            "current_backoff_s": cat.current_backoff_s,
+            "retry_pending": int(cat.retry_pending),
+            # the LSM ladder's keys, at their single-level values
+            "n_shards": cat.n_shards,
+            "l1_rows": cat.l1_rows,
+            "n_l1_folds": cat.stats.n_l1_folds,
+            "n_failed_l1_folds": cat.stats.n_failed_l1_folds,
+            "n_l1_fold_retries": cat.stats.n_l1_fold_retries,
+            "l1_fold_s_total": cat.stats.l1_fold_s_total,
+            "consecutive_fold_failures": cat.consecutive_fold_failures,
+            "fold_backoff_s": cat.fold_backoff_s,
+        })
 
     def _record(self, method: str, res: TopKResult, dt: float,
-                n: int, sign_label: str = "") -> None:
+                n: int, delta_scored: int = 0, sign_label: str = "") -> None:
         s = self.stats.setdefault(method, ServeStats())
-        s.record_batch(n, int(np.sum(res.n_scored)),
-                       int(np.sum(res.depth)), dt, sign_label)
+        n_scored = int(np.sum(res.n_scored))
+        depth_sum = int(np.sum(res.depth))
+        s.record_batch(n, n_scored, depth_sum, dt, int(delta_scored) * n,
+                       sign_label)
+        note_pruning_metrics(method, n, n_scored, depth_sum,
+                             self.catalogue.num_live, 1e6 * dt / max(n, 1),
+                             sign_label)
 
-    def _note_certificates(self, req_stats: ServeStats,
-                           res: TopKResult) -> None:
-        """Count the queries of a budgeted batch whose result holds an
-        uncertified slot (``upper - value > 0`` at a real id)."""
+    def _note_certificates(self, req_stats: ServeStats, engine_name: str,
+                           bud: int, res: TopKResult) -> None:
+        """Certificate accounting for one budgeted batch: the queries whose
+        result holds an uncertified slot (``upper - value > 0`` at a real
+        id), and the registry's certified fraction and mean uncertified
+        gap per (engine, budget bucket)."""
         gaps = res.upper[:, None] - res.values
-        unc = np.logical_and(gaps > 0, res.indices >= 0)
-        req_stats.note_uncertified(int(np.sum(np.any(unc, axis=1))))
+        valid = res.indices >= 0
+        unc = np.logical_and(gaps > 0, valid)
+        n_unc_queries = int(np.sum(np.any(unc, axis=1)))
+        req_stats.note_uncertified(n_unc_queries)
+        n_unc = int(np.sum(unc))
+        frac = 1.0 - n_unc / max(int(np.sum(valid)), 1)
+        mean_gap = float(gaps[unc].mean()) if n_unc else 0.0
+        obs.on_uncertified(engine_name, n_unc_queries)
+        obs.on_certificates(engine_name, batch_bucket(int(bud)), frac,
+                            mean_gap, n_unc > 0)
 
     def _shed_result(self, n: int, k: int) -> TopKResult:
         """Sentinel result for a shed chunk: explicitly nothing — ``-inf``
@@ -345,7 +469,7 @@ class TopKServer:
         if U_all.ndim != 2:
             raise ValueError(
                 f"U must be [B, R] or [R], got shape {tuple(U_all.shape)}")
-        rank = self.ctx.rank
+        rank = self.catalogue.rank
         if U_all.shape[1] != rank:
             raise ValueError(
                 f"query rank {U_all.shape[1]} != catalogue rank {rank}")
@@ -377,8 +501,10 @@ class TopKServer:
                     run_eng, bud, rung = self._admit(eng, n, remaining)
                 if rung != "full":
                     req_stats.bump_degradation(rung)
+                    obs.on_degradation(engine.name, rung)
                 if run_eng is None:
                     req_stats.note_uncertified(n)
+                    obs.on_uncertified(engine.name, n)
                     outs.append(self._shed_result(n, int(k)))
                     continue
                 if bud is None:
@@ -391,8 +517,9 @@ class TopKServer:
                         if run_eng.batch_config is not None else ())
                 label = (sign_bucket_label(bcfg)
                          if run_eng.batch_config is not None else "")
-                res = _to_host(run_eng.run(self.ctx, chunk, k, budget=bud,
-                                           bcfg=bcfg))
+                res, info = self.catalogue.query(run_eng, chunk, k,
+                                                 budget=bud, bcfg=bcfg)
+                res = _to_host(res)
                 dt = time.perf_counter() - t0
             finally:
                 with self._admit_lock:
@@ -401,7 +528,7 @@ class TopKServer:
                 # an exact engine without a bound: the vacuous one
                 res = res._replace(upper=np.full((n,), -np.inf, np.float32))
             if bud is not None:
-                self._note_certificates(req_stats, res)
+                self._note_certificates(req_stats, run_eng.name, bud, res)
             # cost model: per-query seconds per (engine, budgeted?), as an
             # EWMA for the ladder and per (bucket, sign) for the router
             key = run_eng.name if bud is None else f"{run_eng.name}@budget"
@@ -410,9 +537,12 @@ class TopKServer:
             self._cost_ewma[key] = (per_q if prev is None
                                     else 0.8 * prev + 0.2 * per_q)
             self.cost_table.observe(key, batch_bucket(n), label, per_q)
-            self._record(run_eng.name, res, dt, n, label)
+            self._record(run_eng.name, res, dt, n, info.delta_scored,
+                         sign_label=label)
             outs.append(res)
-        req_stats.record_request_latency(1e6 * (time.perf_counter() - t_admit))
+        req_us = 1e6 * (time.perf_counter() - t_admit)
+        req_stats.record_request_latency(req_us)
+        obs.on_request_done(engine.name, req_us)
         return TopKResult(*(np.concatenate(xs, axis=0) for xs in zip(*outs)))
 
 

@@ -16,15 +16,12 @@ import repro.core as ref_core
 import repro_torch.core as core
 
 NOT_YET_PORTED = {
-    # A6: streaming tier
-    "SegmentedCatalogue": "A6", "Snapshot": "A6", "DeltaSegment": "A6",
-    "QueryInfo": "A6", "SegmentStats": "A6", "delta_bucket": "A6",
-    "DEFAULT_DELTA_CAPACITY": "A6", "ShardedLsmCatalogue": "A6",
-    "DEFAULT_L1_CAPACITY_FACTOR": "A6", "faults": "A6",
-    # A8: sharding
-    "sharded_naive_topk": "A8", "sharded_blocked_topk": "A8",
-    "sharded_norm_topk": "A8", "hierarchical_merge_topk": "A8",
-    "compat_shard_map": "A8", "ShardedNormLayout": "A8",
+    # A3: the LSM ladder
+    "ShardedLsmCatalogue": "A3", "DEFAULT_L1_CAPACITY_FACTOR": "A3",
+    # A5: sharding
+    "sharded_naive_topk": "A5", "sharded_blocked_topk": "A5",
+    "sharded_norm_topk": "A5", "hierarchical_merge_topk": "A5",
+    "compat_shard_map": "A5", "ShardedNormLayout": "A5",
 }
 
 # reference name -> the port's counterpart, "module:name"
@@ -79,8 +76,8 @@ def test_exported_name_is_its_defining_modules_object(name):
     if owner is None or not owner.startswith("repro_torch.core."):
         # a constant: find the port module that defines it
         owners = [m for m in ("blocked", "driver", "engines", "index",
-                              "layout", "naive", "seplr", "strategies",
-                              "threshold")
+                              "layout", "naive", "segments", "seplr",
+                              "strategies", "threshold")
                   if name in vars(importlib.import_module(
                       f"repro_torch.core.{m}"))]
         assert owners, f"{name} is defined in no port core module"
@@ -94,3 +91,9 @@ def test_flat_import_of_the_main_names():
     assert get_engine("bta").name == "bta"
     assert all(callable(f) for f in (SepLRModel, blocked_topk, build_index,
                                      naive_topk, CostTable))
+
+
+def test_obs_exports_the_references_names():
+    import repro.obs as ref_obs
+    import repro_torch.obs as obs
+    assert obs.__all__ == ref_obs.__all__

@@ -166,8 +166,11 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     T = np.random.default_rng(0).standard_normal((512, 8)).astype(np.float32)
     cat = MIPSCatalog(T, block_m=64, device="cuda")
     args = cat.kernel_args(np.ones((2, 8), np.float32), 5, "single_level")
+    wide = MIPSCatalog(np.ones((64, 4097), np.float32), block_m=64,
+                       device="cuda")
     with pytest.raises(ValueError, match="kernel limits"):
-        topk_mips(**{**args, "k": 257})
+        topk_mips(**wide.kernel_args(np.ones((2, 4097), np.float32), 5,
+                                     "single_level"))
     with pytest.raises(ValueError, match="float32"):
         topk_mips(**{**args, "U": args["U"].double()})
     with pytest.raises(ValueError, match="contiguous"):
@@ -487,6 +490,32 @@ def test_ta_engine_on_the_card_matches_the_cpu(budget):
 
 
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,r,k,block", [
+    (20000, 50, 257, 256),    # one past the shared-memory carry
+    (20000, 50, 522, 256),    # the streaming ladder's third rung at k = 10
+    (20000, 100, 1500, 128),  # k far past block_m
+    (3000, 17, 3000, 64),     # the whole catalogue (the ladder's last rung)
+])
+def test_cuda_kernel_past_the_shared_carry_matches_plain_version(m, r, k,
+                                                                 block):
+    """k > 256: the gate walk carries its top-k in global memory; every
+    mode still equals the plain version, values, ids and stats."""
+    _need_card()
+    rng = np.random.default_rng(m + k)
+    T = _catalogue(rng, m, r, "decaying")
+    cat = MIPSCatalog(T, block_m=block, superblock=8, device="cuda")
+    U = rng.standard_normal((70, r)).astype(np.float32)
+    for mode in MODES:
+        args = cat.kernel_args(U, k, mode)
+        before = topk_mips.launches
+        got = topk_mips(**args)
+        assert topk_mips.launches == before + 1
+        want = topk_mips_plain(**args)
+        torch.cuda.synchronize()
+        assert_topk_equal(got[:2], want[:2])
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+
+
 # auto and the admission ladder on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -560,3 +589,101 @@ def test_forced_ladder_rungs_on_the_card_match_the_cpu(forced, rung):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     shed = card.query(U, 10, method="bta", deadline_ms=0.0)
     assert (shed.indices == -1).all() and (shed.upper == np.inf).all()
+
+
+# the streaming server on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _streamed_pair(**kw):
+    """Card and CPU servers over one catalogue, both warmed for topk_mips
+    and bta, then 40 inserts, 20 updates and 120 deletes of which 140
+    tombstones sit in query 0's top 140: its fetch climbs 42 -> 138 ->
+    522 (past the kernel's shared-memory carry)."""
+    rng = np.random.default_rng(74)
+    T = rng.standard_normal((5000, 16)).astype(np.float32)
+    U = rng.standard_normal((8, 16)).astype(np.float32)
+    servers = _card_and_cpu_servers(T, delta_capacity=64,
+                                    max_tombstones=1000, **kw)
+    top = np.argsort(-(T.astype(np.float64) @ U[0]), kind="stable")[:140]
+    rows = rng.standard_normal((60, 16)).astype(np.float32)
+    for s in servers:
+        s.warmup(10, batch_sizes=(8,), engines=["topk_mips", "bta"])
+        s.add_targets(rows[:40])
+        s.update_targets(top[:20], rows[40:])
+        s.delete_targets(top[20:])
+    return servers, U, rng
+
+
+def _assert_same_streamed(card, cpu, U, method, k=10):
+    """One segmented query on both: results and QueryInfo equal."""
+    from repro_torch.core.engines import get_engine
+    (got, gi), (want, wi) = (s.catalogue.query(get_engine(method), U, k)
+                             for s in (card, cpu))
+    torch.cuda.synchronize()
+    assert_topk_equal((got.values.cpu(), got.indices.cpu()),
+                      (want.values, want.indices))
+    for f in ("n_scored", "depth"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+    assert gi == wi
+    return gi
+
+
+def test_streaming_server_on_the_card_matches_the_cpu():
+    """Mutations, the escalation ladder past 256 through kernel B1, bta
+    through kernel B4, a synchronous compaction: the card answers as the
+    CPU does, counts and QueryInfo included, and the compaction loads no
+    kernel library (engine_compiles_total 0)."""
+    _need_card()
+    from repro_torch.kernels.gather_scores import gather_scores
+    (card, cpu), U, rng = _streamed_pair()
+    b1, b4 = topk_mips.launches, gather_scores.launches
+    info = _assert_same_streamed(card, cpu, U, "topk_mips")
+    assert info.retried and info.overfetch_k == 522
+    assert topk_mips.launches - b1 == 3           # one launch a rung
+    _assert_same_streamed(card, cpu, U, "bta")
+    assert gather_scores.launches > b4
+    _assert_same_streamed(card, cpu, U, "naive")
+    rows = rng.standard_normal((10, 16)).astype(np.float32)
+    for s in (card, cpu):
+        s.add_targets(rows)                       # 70 > 64: a compaction
+        assert s.catalogue.version == 1
+    info = _assert_same_streamed(card, cpu, U, "topk_mips")
+    assert info.version == 1 and not info.retried
+    assert card.mutation_stats["engine_compiles_total"] == 0
+    assert card.ctx.device.type == "cuda" and card.ctx.version == 1
+    got = card.query(U, 10, method="topk_mips")
+    want = cpu.query(U, 10, method="topk_mips")
+    np.testing.assert_allclose(got.values, want.values, rtol=1e-5)
+
+
+def test_streaming_background_and_failed_builds_on_the_card():
+    """A compact_async build with queries during it, then a build failed
+    by the fault point and healed by a retry: the card answers as the CPU
+    does after each, and no kernel library loads in any build."""
+    _need_card()
+    from repro_torch.core import faults
+    (card, cpu), U, rng = _streamed_pair(compact_async=True)
+    rows = rng.standard_normal((10, 16)).astype(np.float32)
+    for s in (card, cpu):
+        s.add_targets(rows)                       # 70 > 64: async build
+    during = card.query(U, 10, method="topk_mips")   # may race the build
+    assert np.isfinite(during.values).all()
+    for s in (card, cpu):
+        s.catalogue.flush()
+        assert s.catalogue.version == 1
+    _assert_same_streamed(card, cpu, U, "topk_mips")
+    rows = rng.standard_normal((5, 16)).astype(np.float32)
+    for s in (card, cpu):
+        s.add_targets(rows)
+        with faults.injected("compaction.build", error=RuntimeError):
+            with pytest.raises(RuntimeError, match="compaction build"):
+                s.catalogue.compact(wait=True)
+        assert s.catalogue.version == 1 and s.catalogue.l0_chain_len == 1
+    _assert_same_streamed(card, cpu, U, "topk_mips")
+    for s in (card, cpu):
+        s.catalogue.compact(wait=True)            # the retry heals
+        assert s.catalogue.version == 2
+        assert s.mutation_stats["n_failed_compactions"] == 1
+    _assert_same_streamed(card, cpu, U, "topk_mips")
+    assert card.mutation_stats["engine_compiles_total"] == 0

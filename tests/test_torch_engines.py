@@ -212,12 +212,19 @@ def test_server_validation_and_later_slices(servers):
         srv.query(bad, 5, method="naive")
     with pytest.raises(ValueError, match="deadline_ms must be"):
         srv.query(U, 5, method="naive", deadline_ms=-1.0)
-    for call in (lambda: srv.add_targets(U[:1]),
-                 lambda: srv.delete_targets([0]),
-                 lambda: srv.update_targets([0], U[:1])):
-        with pytest.raises(NotImplementedError, match="streaming"):
-            call()
-    with pytest.raises(NotImplementedError, match="streaming"):
+    # the streaming tier's mutations serve (a server of their own: the
+    # fixture's stays static); the LSM ladder is a later slice
+    mut = TopKServer(srv.model, max_batch=16, block_size=64, device="cpu")
+    new = mut.add_targets(U[:1])
+    mut.delete_targets([0])
+    mut.update_targets([1], U[1:2])
+    assert mut.mutation_stats["num_live"] == srv.ctx.num_targets
+    assert int(new[0]) == srv.ctx.num_targets
+    rows, gids = mut.catalogue.as_dense()
+    best = gids[np.argmax(U[:4].astype(np.float64) @ rows.T, axis=1)]
+    np.testing.assert_array_equal(
+        mut.query(U[:4], 1, method="naive").indices[:, 0], best)
+    with pytest.raises(NotImplementedError, match="streaming.*A3"):
         TopKServer(srv.model, n_shards=2, device="cpu")
 
 

@@ -302,3 +302,44 @@ def test_query_slices_bound_the_kernel_scratch(B, n_blocks, kk, budget):
     assert rows < 64 or rows % 64 == 0 or rows == B
     if B * per_query > budget:
         assert len(slices) > 1
+
+
+def test_k_past_the_shared_memory_carry_matches_reference():
+    """k = 300: the CUDA gate walk keeps its carry in global memory past
+    256 rows. The engine (plain version on the CPU) equals the
+    reference's ``pallas`` engine, and the kernel's two-phase
+    decomposition equals the plain version in every mode."""
+    from repro.core.engines import EngineContext as RefContext
+    from repro.core.engines import get_engine as ref_get_engine
+    from repro_torch.core.engines import EngineContext, get_engine
+    T = _decaying(1500, 12, 0.3, 4)
+    rng = np.random.default_rng(4)
+    U = rng.standard_normal((3, 12)).astype(np.float32)
+    got = get_engine("topk_mips").run(
+        EngineContext(T, block_size=128, device="cpu"), U, 300)
+    want = ref_get_engine("pallas").run(RefContext(T, block_size=128),
+                                        jnp.asarray(U), 300)
+    assert_topk_equal(got[:2], want[:2])
+    for field in ("n_scored", "depth"):
+        np.testing.assert_array_equal(host(getattr(got, field)),
+                                      np.asarray(getattr(want, field)))
+    cat = _port(RefCatalog(T, block_m=128, superblock=2))
+    for mode in ("two_level_batched", "two_level_tile", "single_level"):
+        args = cat.kernel_args(U, 300, mode)
+        _assert_same(_decomposed(**args), topk_mips(**args))
+
+
+@pytest.mark.parametrize("B,n_blocks,kk,k,budget", [
+    (64, 1272, 256, 522, 256 << 20),    # LSHTC-like, the ladder's k = 522
+    (10, 64, 64, 100_000, 4 << 20),     # the carry alone past the budget
+])
+def test_query_slices_count_the_global_carry(B, n_blocks, kk, k, budget):
+    """Past 256 the slices also hold each query's global carry of
+    ``4 k + 2 kk`` words within the budget."""
+    slices = query_slices(B, n_blocks, kk, budget, k=k)
+    assert slices[0][0] == 0 and slices[-1][1] == B
+    per_query = n_blocks * (8 * kk + 4) + 4 * (4 * k + 2 * kk)
+    rows = slices[0][1] - slices[0][0]
+    assert rows == 1 or rows * per_query <= budget
+    assert query_slices(B, n_blocks, kk, budget, k=256) == query_slices(
+        B, n_blocks, kk, budget)
