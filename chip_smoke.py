@@ -12,8 +12,8 @@ checkout. In order, it
    each, started together) and prints nvcc's ``-Xptxas -v`` register and
    shared-memory reports; then makes the two catalogues and warms a
    ``TopKServer`` over each with every executable engine (one batch per
-   sign bucket for ``bta`` and ``ta``), printing each engine's warmup
-   time;
+   sign bucket for ``bta`` and ``ta``; ``ta`` at the 64-query bucket
+   only), printing each engine's warmup time;
 3. holds each of ``topk_mips``' three modes against its plain PyTorch
    version on the card, at the main-path shapes (the LSHTC-like
    325,056 x 100 catalogue, B = 64, k = 10, block_m 256, superblock 8),
@@ -47,8 +47,9 @@ checkout. In order, it
    plain versions) gives the first 4 LSHTC-like queries the same values,
    ids, ``n_scored`` and ``depth``;
 7. drives the ``ta`` path (the paper's Threshold Algorithm, 32 rounds a
-   step) — ``TopKServer.query(method="ta")`` over the same three batches,
-   then one LSHTC-like batch halted by a budget of 4,100 rounds (inside a
+   step) — ``TopKServer.query(method="ta")`` over the same batches (of
+   the LSHTC-like queries only the first 64: one chunk), then one
+   LSHTC-like batch halted by a budget of 4,100 rounds (inside a
    chunk, past the prefix) — with the counters set to 0 just before and
    read just after; checks that ``ta`` agrees with ``naive``, that its
    LSHTC-like tail launched ``gather_scores`` once a tail or gather step,
@@ -121,7 +122,37 @@ checkout. In order, it
     (timed, with ``torch.topk`` over the full product) and B4 at the
     ``bta`` chunk's first tail block (timed): two rows of the kernels
     line;
-13. prints one ``{"kernels": [...]}`` line and, last, the device line
+13. the LSM ladder behind the async front end at LSHTC-like: an
+    ``AsyncTopKServer(max_batch=64, flush_ms=2, method="topk_mips",
+    delta_capacity=256, n_shards=8)`` (8 L1 runs of 1,024 rows) warmed
+    for ``topk_mips`` and ``norm`` at every bucket; then, with the
+    counters set to 0 just before and read just after, bursts of 8 client
+    threads x 32 single queries (query 0 then 5 times more, cache hits)
+    between mutation rounds of 256 inserts, 16 deletes (8 L1-run rows, 8
+    base rows of query 0's top 138) and 16 updates (L1-run rows) on the
+    card's catalogue and a CPU ``ShardedLsmCatalogue``, until the tier
+    promotes: one round's fold failed through
+    ``faults.injected("compaction.fold_l1")`` and healed by the next, one
+    promotion failed through ``faults.injected("compaction.promote")``
+    and retried, one burst racing a mutation batch from another thread,
+    and one unwarmed 64-query ``bta`` micro-batch over the L1 tier (B4).
+    Every result is held against a dense top-K over the live rows on the
+    card (the raced burst's against the state before or after), the
+    first 4 queries of each round against the CPU catalogue (values,
+    ids, ``n_scored``, ``depth``, ``QueryInfo``); each round's
+    ``cache_token`` moves by its three mutation batches and its swaps
+    only (no fold moves it), the hot query's repeats hit the cache and
+    its first ask after a mutation misses, the fold, failure and
+    compaction counts equal the CPU's and the schedule's, and
+    ``engine_compiles_total`` is 0. It prints the request latencies, the
+    coalescing histogram, cache hits, seconds a fold, the promotion's
+    seconds, the launches, the synchronizing calls of one ``topk_mips``
+    dispatch (``torch.cuda.set_sync_debug_mode``) and
+    the same queries through the synchronous server; then holds B1 at
+    the coalesced batch's shape (B = 8, k = 42) and B4 at the ``bta``
+    micro-batch's first tail block against their plain versions, timed:
+    two rows of the kernels line;
+14. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -166,6 +197,9 @@ N_CPU_CHECK = 4
 # the ta phase's halted batch: a budget in rounds past the 2,048-round
 # list prefix that stops inside a 32-round chunk
 TA_BUDGET = 4100
+# the ta phase's exact LSHTC-like run: one 64-query chunk of the 256
+# queries (each chunk costs seconds of host-bound steps)
+TA_LSH_QUERIES = 64
 # lane counts of B4's path sweep
 SWEEP_LANES = (1, 2, 3, 4, 5, 6, 8, 16, 32, 64)
 # Scores from two fp32 summation orders over R <= 100 products differ by a
@@ -196,6 +230,25 @@ B5_CALLS = {"embedding_bag[sum,d=1]": ("linear d=1", "sum"),
 STREAM_DELTA = 256
 STREAM_LADDER_K = 522
 STREAM_DURING_MAX = 64
+# The LSM ladder behind the async front end: 8 L1 runs of the default
+# 4 x 256 rows; bursts of 8 client threads x 32 single queries; rounds of
+# 256 inserts, 16 deletes (8 in L1 runs, 8 base rows of query 0's top 138)
+# and 16 updates (of L1 rows) until the tier promotes; the round whose
+# fold fails, the round after which one bta micro-batch runs over the L1
+# tier, and the round whose burst races a mutation batch
+LSM_SHARDS = 8
+LSM_CLIENTS = 8
+LSM_HOT_REPEATS = 5
+LSM_INSERTS, LSM_DELETES, LSM_UPDATES = 256, 16, 16
+LSM_TOP = 138
+LSM_FOLD_FAIL_ROUND = 2
+LSM_BTA_ROUND = 16
+LSM_RACE_ROUND = 8
+LSM_MAX_ROUNDS = 48
+LSM_WAIT_S = 300
+# the coalesced batch B1 is timed at (8 closed-loop clients) and the
+# tombstoned catalogue's first fetch, k + overfetch_reserve
+LSM_B1_BATCH, LSM_B1_K = 8, 42
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -296,12 +349,12 @@ def queries(rng, n, rank, distribution):
     return rng.standard_normal((n, rank)).astype(np.float32) * spectrum
 
 
-def compare_modes(cat, U, k, label, timing: bool):
+def compare_modes(cat, U, k, label, timing: bool, modes=MODES):
     """Each mode's kernel against its plain version on the same inputs."""
     import torch
     from repro_torch.kernels.topk_mips import topk_mips, topk_mips_plain
     out = {}
-    for mode in MODES:
+    for mode in modes:
         args = cat.kernel_args(U, k, mode)
         kv, ki, ks = topk_mips(**args)
         torch.cuda.synchronize()
@@ -915,7 +968,8 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
     from repro_torch.kernels.gather_scores import gather_scores
     from repro_torch.kernels.topk_mips import topk_mips
     lsh, bc = LSH, BC
-    runs = [(lsh, U_all[lsh], "mixed", None), (bc, U_all[bc], "mixed", None),
+    runs = [(lsh, U_all[lsh][:TA_LSH_QUERIES], "mixed", None),
+            (bc, U_all[bc], "mixed", None),
             (bc, np.abs(U_all[bc]), "nonneg", None),
             (lsh, U_all[lsh][:BATCH], "halted", TA_BUDGET)]
     steps, lat, res = {}, {}, {}
@@ -953,9 +1007,11 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
                                ("nonneg", bc, results[bc, "naive",
                                                       "nonneg"])):
         got = res[label, name]
-        check(np.allclose(got.values, naive.values, rtol=RTOL, atol=ATOL)
-              and ids_agree(torch.from_numpy(naive.values),
-                            torch.from_numpy(naive.indices),
+        n = got.values.shape[0]
+        check(np.allclose(got.values, naive.values[:n], rtol=RTOL,
+                          atol=ATOL)
+              and ids_agree(torch.from_numpy(naive.values[:n]),
+                            torch.from_numpy(naive.indices[:n]),
                             torch.from_numpy(got.values),
                             torch.from_numpy(got.indices)),
               f"{name}: ta differs from naive ({label} batch)")
@@ -1004,6 +1060,7 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
               f"{st.get('tail', 0) / chunks:.2f}, gather "
               f"{st.get('gather', 0) / chunks:.2f})", flush=True)
     depth = res["mixed", lsh].depth
+    bta_depth = bta_depth[:depth.shape[0]]
     print(f"ta path: gather_scores launches={launches} (by path "
           f"{path_launches}) in {seconds:.1f} s; {lsh} queries whose ta "
           f"depth <= their bta depth: {np.mean(depth <= bta_depth):.2%} "
@@ -1458,6 +1515,397 @@ def streaming_path(servers, U_all, dev):
     return [b1_row, b4_stream]
 
 
+def lsm_async_path(servers, U_all, dev):
+    """Step 13 of the module docstring. Returns the two rows of the
+    kernels line it adds (B1 at the coalesced batch's shape, B4 at the
+    ``bta`` micro-batch's first tail block)."""
+    import dataclasses
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core import ShardedLsmCatalogue, faults, get_engine
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    from repro_torch.serving.pipeline import AsyncTopKServer
+    t_phase = time.perf_counter()
+    base = servers[LSH]
+    T_host = base.ctx.targets.cpu().numpy()
+    M, r = T_host.shape
+    U = U_all[LSH]
+    n_q = U.shape[0]
+    U_dev = torch.from_numpy(U).to(dev)
+    rng = np.random.default_rng(SEED + 21)
+    t0 = time.perf_counter()
+    srv = AsyncTopKServer(base.model, max_batch=BATCH, flush_ms=2.0,
+                          method="topk_mips", delta_capacity=STREAM_DELTA,
+                          n_shards=LSM_SHARDS, device=dev)
+    srv.warmup(K, engines=["topk_mips", "norm"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cat = srv.catalogue
+    check(isinstance(cat, ShardedLsmCatalogue)
+          and cat.l1_run_capacity == 4 * STREAM_DELTA,
+          f"lsm: the server's catalogue is {type(cat).__name__} with runs "
+          f"of {getattr(cat, 'l1_run_capacity', None)} rows")
+    cpu = ShardedLsmCatalogue(T_host, n_shards=LSM_SHARDS,
+                              delta_capacity=STREAM_DELTA,
+                              block_size=srv.server.block_size, device="cpu")
+    print(f"{LSH} AsyncTopKServer over a ShardedLsmCatalogue ({LSM_SHARDS} "
+          f"runs of {cat.l1_run_capacity} rows, delta_capacity "
+          f"{STREAM_DELTA}) built and warmed for topk_mips and norm at "
+          f"buckets 1..{BATCH} in {warm_s:.1f} s", flush=True)
+
+    def new_rows(n):
+        """Perturbed copies of catalogue rows: the catalogue's norms."""
+        pick = rng.integers(M, size=n)
+        noise = rng.standard_normal((n, r)).astype(np.float32)
+        return (T_host[pick] + 0.1 * np.abs(T_host[pick]).mean()
+                * noise).astype(np.float32)
+
+    def dense_oracle(state=None):
+        """Top-K of every query over the live rows (or ``state``)."""
+        rows, gids = cat.as_dense() if state is None else state
+        s = U_dev @ torch.from_numpy(rows).to(dev).T
+        ov, pos = torch.topk(s, K, dim=1)
+        return ov, torch.from_numpy(gids).to(dev)[pos]
+
+    def agrees(res_by_q, oracle):
+        """The queries of ``res_by_q`` ({query: result}) whose values and
+        ids equal ``oracle``'s."""
+        qs = sorted(res_by_q)
+        gv = torch.from_numpy(np.stack([res_by_q[q].values[0]
+                                        for q in qs])).to(dev)
+        gi = torch.from_numpy(np.stack([res_by_q[q].indices[0]
+                                        for q in qs])).to(dev).long()
+        ov, og = (x[torch.tensor(qs, device=dev)] for x in oracle)
+        ok = torch.isclose(gv, ov, rtol=RTOL, atol=ATOL).all(1).tolist()
+        return {q for j, q in enumerate(qs) if ok[j] and ids_agree(
+            ov[j:j + 1], og[j:j + 1], gv[j:j + 1], gi[j:j + 1])}
+
+    req_lat = []
+
+    def burst(label, race=None):
+        """``LSM_CLIENTS`` threads, each submitting its share of the
+        queries one at a time (``race``: a thread that mutates meanwhile).
+        Returns ({query: result}, seconds)."""
+        out, errors = {}, []
+
+        def client(part):
+            try:
+                for q in part:
+                    t = time.perf_counter()
+                    res = srv.submit(U[q], K).result(timeout=LSM_WAIT_S)
+                    req_lat.append(1e6 * (time.perf_counter() - t))
+                    out[int(q)] = res
+            except Exception as exc:          # reported below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(part,))
+                   for part in np.array_split(np.arange(n_q), LSM_CLIENTS)]
+        if race is not None:
+            threads.append(threading.Thread(target=race))
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(LSM_WAIT_S)
+        dt = time.perf_counter() - t
+        check(not any(th.is_alive() for th in threads),
+              f"lsm {label}: a client thread hung")
+        check(not errors, f"lsm {label}: a request failed: {errors[:1]!r}")
+        check(len(out) == n_q, f"lsm {label}: {len(out)} of {n_q} answers")
+        return out, dt
+
+    def cpu_check(label):
+        """The first N_CPU_CHECK queries on the card and on the CPU: equal
+        values, ids, counts and QueryInfo."""
+        eng = get_engine("topk_mips")
+        card_res, card_info = cat.query(eng, U[:N_CPU_CHECK], K)
+        cpu_res, cpu_info = cpu.query(eng, U[:N_CPU_CHECK], K)
+        cv = card_res.values.cpu()
+        check(torch.allclose(cv, cpu_res.values, rtol=RTOL, atol=ATOL)
+              and ids_agree(cpu_res.values, cpu_res.indices.long(), cv,
+                            card_res.indices.cpu().long()),
+              f"lsm {label}: the card differs from the CPU")
+        for f in ("n_scored", "depth"):
+            check(torch.equal(getattr(card_res, f).cpu(),
+                              getattr(cpu_res, f)),
+                  f"lsm {label}: {f} on the card "
+                  f"{getattr(card_res, f).tolist()} != on the CPU "
+                  f"{getattr(cpu_res, f).tolist()}")
+        check(dataclasses.astuple(card_info) == dataclasses.astuple(cpu_info),
+              f"lsm {label}: QueryInfo {card_info} != {cpu_info}")
+        return card_info
+
+    def round_batches(state):
+        """One mutation round's batches, drawn from the card's ``state``
+        (equal to the CPU's): inserts; deletes of L1-run rows and of base
+        rows in query 0's current top LSM_TOP; updates of L1-run rows."""
+        ins = new_rows(LSM_INSERTS)
+        rows, gids = state
+        snap = cat.snapshot
+        n_base = snap.num_rows - snap.n_dead
+        l1 = gids[n_base:n_base + cat.l1_rows]    # ladder age order
+        half = LSM_DELETES // 2
+        s0 = rows[:n_base].astype(np.float64) @ U[0].astype(np.float64)
+        top = np.argsort(-s0, kind="stable")[:LSM_TOP]
+        if len(l1) < half + LSM_UPDATES:
+            # no tier yet: base rows outside query 0's top instead
+            l1 = np.setdiff1d(gids[:n_base], gids[top])
+        pick = rng.permutation(len(l1))[:half + LSM_UPDATES]
+        dels = np.concatenate([l1[pick[:half]], gids[top[:half]]])
+        upd = l1[pick[half:]]
+        return (ins, dels.astype(np.int64), upd.astype(np.int64),
+                new_rows(len(upd)))
+
+    def mutate(c, batches):
+        ins, dels, upd, upd_rows = batches
+        gids = c.add_targets(ins)
+        c.delete_targets(dels)
+        c.update_targets(upd, upd_rows)
+        return gids
+
+    stats_keys = ("n_l1_folds", "n_failed_l1_folds", "n_compactions",
+                  "n_failed_compactions")
+
+    def counted():
+        return {key: getattr(cat.stats, key) for key in stats_keys}
+
+    srv.start()
+    torch.cuda.synchronize()
+    topk_mips.launches = gather_scores.launches = 0
+    topk_mips.path_launches = dict.fromkeys(topk_mips.path_launches, 0)
+    t_main = time.perf_counter()
+    burst_s, infos, fold_tokens = [], {}, 0
+    promote_failed_round = bta = race = None
+    hits0 = srv.cache.hits
+    for rnd in range(LSM_MAX_ROUNDS):
+        # -- a burst of single requests, then the hot query's repeats --------
+        if rnd == LSM_RACE_ROUND:
+            before = cat.as_dense()
+            ov, og = dense_oracle(before)
+            best = og[:BATCH, 0].cpu().numpy()
+            rows_of = {int(g): i for i, g in enumerate(before[1])}
+            raced = np.stack([1.5 * before[0][rows_of[int(g)]]
+                              for g in best]).astype(np.float32)
+            n_done = threading.Event()
+
+            def racer():
+                while len(req_lat) < race_from and not n_done.wait(0.001):
+                    pass
+                srv.add_targets(raced)
+
+            race_from = len(req_lat) + n_q // 3
+            res, dt = burst(f"round {rnd} (racing a mutation)", racer)
+            n_done.set()
+            cpu.add_targets(raced)
+            state = cat.as_dense()
+            after = dense_oracle(state)
+            ok_before = agrees(res, (ov, og))
+            ok_after = agrees(res, after)
+            check(ok_before | ok_after == set(res),
+                  f"lsm: {len(set(res) - (ok_before | ok_after))} results "
+                  "of the raced burst equal neither the state before nor "
+                  "the state after the mutation")
+            race = (len(ok_before - ok_after), len(ok_after - ok_before),
+                    len(ok_before & ok_after))
+        else:
+            res, dt = burst(f"round {rnd}")
+            state = cat.as_dense()            # no mutation until the round
+            ok = agrees(res, dense_oracle(state))
+            check(ok == set(res), f"lsm round {rnd}: {n_q - len(ok)} results "
+                  "differ from the dense oracle")
+        burst_s.append(dt)
+        if rnd == LSM_RACE_ROUND:             # cache the state after it
+            srv.submit(U[0], K).result(timeout=LSM_WAIT_S)
+        hits, misses = srv.cache.hits, srv.cache.misses
+        for _ in range(LSM_HOT_REPEATS):
+            hot = srv.submit(U[0], K).result(timeout=LSM_WAIT_S)
+        check(srv.cache.hits - hits == LSM_HOT_REPEATS
+              and srv.cache.misses == misses,
+              f"lsm round {rnd}: the hot query's repeats hit "
+              f"{srv.cache.hits - hits} times, missed "
+              f"{srv.cache.misses - misses}")
+        check(rnd == LSM_RACE_ROUND
+              or np.array_equal(hot.indices, res[0].indices),
+              f"lsm round {rnd}: the cached answer differs")
+        infos[rnd] = cpu_check(f"round {rnd}")
+        if cat.stats.n_compactions:
+            break                             # the tier has promoted
+        # -- a mutation round on both catalogues -----------------------------
+        batches = round_batches(state)
+        token, was = cat.cache_token(), counted()
+        misses = srv.cache.misses
+        point = ("compaction.fold_l1" if rnd == LSM_FOLD_FAIL_ROUND
+                 else "compaction.promote"
+                 if promote_failed_round is None else None)
+        for c in (srv, cpu):
+            if point is None:
+                gids = mutate(c, batches)
+            else:
+                with faults.injected(point, error=RuntimeError, times=1):
+                    gids = mutate(c, batches)
+            if c is srv:
+                card_gids = gids
+        check(np.array_equal(card_gids, gids),
+              f"lsm round {rnd}: the card and the CPU gave other gids")
+        now = counted()
+        for key in stats_keys:
+            check(now[key] == getattr(cpu.stats, key),
+                  f"lsm round {rnd}: {key} {now[key]} on the card, "
+                  f"{getattr(cpu.stats, key)} on the CPU")
+        if rnd == LSM_FOLD_FAIL_ROUND:
+            check(now["n_failed_l1_folds"] == was["n_failed_l1_folds"] + 1,
+                  f"lsm round {rnd}: the injected fold failure did not fire")
+        if now["n_failed_compactions"] > was["n_failed_compactions"]:
+            promote_failed_round = rnd
+            check(cat.l1_rows > 0 or now["n_compactions"],
+                  "lsm: a failed promotion moved the tier")
+        dv = now["n_compactions"] - was["n_compactions"]
+        check(cat.cache_token() == (token[0] + dv, token[1] + 3 + dv),
+              f"lsm round {rnd}: cache_token {token} -> "
+              f"{cat.cache_token()} with {dv} swaps: a fold moved it")
+        fold_tokens += now["n_l1_folds"] > was["n_l1_folds"] and not dv
+        srv.submit(U[0], K).result(timeout=LSM_WAIT_S)
+        check(srv.cache.misses == misses + 1,
+              f"lsm round {rnd}: the hot query hit the cache after a "
+              "mutation")
+        if rnd == LSM_BTA_ROUND:
+            # one 64-query bta micro-batch over the L1 tier, unwarmed, of
+            # queries no cache entry of this token holds: the 64 requests
+            # arrive together (queued under the pipeline's lock), so they
+            # form one batch
+            check(cat.l1_rows > 0, "lsm: the bta batch has no L1 tier")
+            b4 = gather_scores.launches
+            full = srv.pipeline_stats.batch_size_hist.get(BATCH, 0)
+            t = time.perf_counter()
+            with srv._cond:
+                handles = {q: srv.submit(U[q], K, method="bta")
+                           for q in range(1, BATCH + 1)}
+            out = {q: h.result(timeout=LSM_WAIT_S)
+                   for q, h in handles.items()}
+            bta_s = time.perf_counter() - t
+            check(agrees(out, dense_oracle()) == set(out),
+                  "lsm: the bta micro-batch differs from the dense oracle")
+            bta = (bta_s, gather_scores.launches - b4, srv.ctx,
+                   srv.pipeline_stats.batch_size_hist.get(BATCH, 0) - full)
+            check(bta[1] > 0 and bta[3] == 1,
+                  f"lsm: the bta micro-batch launched B4 {bta[1]} times in "
+                  f"{bta[3]} batches of {BATCH}")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    b1 = topk_mips.launches
+    b4 = gather_scores.launches
+    check(b1 > 0 and b4 > 0, f"lsm: B1 launched {b1}, B4 {b4} times")
+    final = counted()
+    ms = srv.mutation_stats
+    check(final["n_compactions"] == 1 and final["n_failed_compactions"] == 1
+          and final["n_failed_l1_folds"] == 1
+          and promote_failed_round is not None and bta is not None
+          and race is not None,
+          f"lsm: the schedule ran {final}, promotion failed in round "
+          f"{promote_failed_round}")
+    check(ms["engine_compiles_total"] == 0,
+          f"lsm: {ms['engine_compiles_total']} kernel library loads in "
+          "builds")
+    rows_c, gids_c = cat.as_dense()
+    rows_p, gids_p = cpu.as_dense()
+    check(np.array_equal(gids_c, gids_p) and np.array_equal(rows_c, rows_p),
+          "lsm: the card's and the CPU's live contents differ")
+
+    # the synchronizing calls of one topk_mips dispatch, as the
+    # dispatcher makes it
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cat.query(get_engine("topk_mips"), U[:BATCH], K)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    # the same queries through the synchronous server, 64 a chunk
+    sync_us = []
+    for _ in range(3):
+        t = time.perf_counter()
+        res = srv.server.query(U, K, method="topk_mips")
+        sync_us.append(1e6 * (time.perf_counter() - t) / n_q)
+    ov, og = dense_oracle()
+    check(torch.allclose(torch.from_numpy(res.values).to(dev), ov,
+                         rtol=RTOL, atol=ATOL),
+          "lsm: the synchronous server differs from the dense oracle")
+
+    gpu = gpu_name_and_power()
+    st = srv.stats["topk_mips"]
+    ps = srv.pipeline_stats
+    folds = final["n_l1_folds"]
+    async_us = [1e6 * s / n_q for s in burst_s]
+    print(f"lsm async: {len(burst_s)} bursts of {n_q} requests "
+          f"({LSM_CLIENTS} client threads), {ps.n_requests} requests in "
+          f"{ps.n_batches} micro-batches, mean batch "
+          f"{ps.mean_batch_size:.2f}, histogram {ps.batch_size_hist}; "
+          f"req_p50_us {np.percentile(req_lat, 50):.1f} req_p99_us "
+          f"{np.percentile(req_lat, 99):.1f} (client side, all "
+          f"{len(req_lat)}; ServeStats ring {st.req_p50_us:.1f} / "
+          f"{st.req_p99_us:.1f}); burst us/query median "
+          f"{np.median(async_us):.1f} ({gpu})", flush=True)
+    print(f"lsm async: cache {srv.cache.hits - hits0} hits / "
+          f"{srv.cache.misses} misses, {srv.cache.n_invalidations} "
+          f"invalidations; folds {folds} ({ms['l1_fold_s_total'] / folds:.4f}"
+          f" s a fold, {ms['n_l1_fold_retries']} retried after the failed "
+          f"one in round {LSM_FOLD_FAIL_ROUND}), cache_token unmoved across "
+          f"the folds of {fold_tokens} rounds; promotion failed in round "
+          f"{promote_failed_round}, then rebuilt in "
+          f"{ms['last_compaction_s']:.2f} s: {final['n_compactions']} full "
+          f"rebuild against {folds} folds; raced burst: {race[0]} results "
+          f"of the state before, {race[1]} after, {race[2]} of both; bta "
+          f"micro-batch {bta[0]:.2f} s with {bta[1]} B4 launches; launches "
+          f"B1 {b1} {dict(topk_mips.path_launches)}, B4 {b4}; "
+          f"engine_compiles_total {ms['engine_compiles_total']}; "
+          f"{len(syncs)} synchronizing calls in one topk_mips dispatch"
+          + (f" (at {', '.join(syncs)})" if syncs else "")
+          + f"; sync TopKServer.query {np.median(sync_us):.1f} us/query "
+          f"(median of 3, 64 a chunk); main path {main_s:.1f} s ({gpu})",
+          flush=True)
+    print(f"  lsm QueryInfo of the first {N_CPU_CHECK} queries by round: "
+          + "; ".join(f"{rnd}: {i.overfetch_k}/{i.delta_scored}/"
+                      f"{i.n_segments}/v{i.version}"
+                      for rnd, i in infos.items()), flush=True)
+
+    # B1 at the coalesced batch's shape and the tombstoned first fetch
+    Ub = U_dev[:LSM_B1_BATCH].contiguous()
+    b1_rec = compare_modes(cat.snapshot.ctx.catalog, Ub, LSM_B1_K,
+                           f"lsm B={LSM_B1_BATCH} k={LSM_B1_K}", timing=True,
+                           modes=("two_level_batched",))["two_level_batched"]
+    lib_ms = timed_ms_cold(lambda: torch.topk(torch.matmul(
+        Ub, cat.snapshot.ctx.catalog.T_sorted.T), LSM_B1_K), 10)
+    b1_row = {"name": f"topk_mips[lsm async,B={LSM_B1_BATCH},k={LSM_B1_K}]",
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/topk_mips.cu",
+              "replaces": REPLACES["two_level_batched"], "launches": b1,
+              "max_abs_err": b1_rec["max_abs_err"],
+              **{key: b1_rec[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+              "library_ms": lib_ms}
+    # B4 at the bta micro-batch's first tail block
+    bta_ctx = bta[2]
+    first_tail = bta_ctx.layout("list_major").prefix_steps(
+        bta_ctx.block_size)
+    U_bta = U_dev[1:BATCH + 1].contiguous()
+    ids = tail_ids(bta_ctx.index, U_bta, bta_ctx.block_size, first_tail)
+    b4_rec = compare_gather([("lsm bta tail block", bta_ctx.targets, ids,
+                              U_bta, True)])["lsm bta tail block"]
+    b4_lsm = b4_row("gather_scores[lsm bta]", b4_rec, b4,
+                    b4_rec["max_abs_err"])
+    srv.close()
+    print(f"lsm async phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [b1_row, b4_lsm]
+
+
 def oracle_path(dev) -> None:
     """Step 11 of the module docstring."""
     import numpy as np
@@ -1559,11 +2007,14 @@ def run(dev, kind: str) -> None:
         U_all[name] = queries(rng, N_QUERIES, r, dist)
         srv = servers[name] = TopKServer(model, max_batch=BATCH, device=dev)
         # the default warmup (every executable engine, a batch per sign
-        # bucket for the list engines), each engine's share timed on its own
+        # bucket for the list engines), each engine's share timed on its
+        # own; ta, host-bound at ~2,500 steps a batch whatever its size,
+        # only at the 64-query bucket every phase serves it in
         for eng in sorted((e.name for e in list_engines()
                            if e.has_executable), key=lambda n: n == "ta"):
             t_eng = time.perf_counter()
-            srv.warmup(K, engines=[eng])
+            srv.warmup(K, batch_sizes=(BATCH,) if eng == "ta" else None,
+                       engines=[eng])
             torch.cuda.synchronize()
             warm_s[name, eng] = time.perf_counter() - t_eng
         print(f"{name}: M={m} R={r} built and warmed in "
@@ -1778,6 +2229,7 @@ def run(dev, kind: str) -> None:
     ladder_path(servers, U_all, results, dev)
     oracle_path(dev)
     stream_rows = streaming_path(servers, U_all, dev)
+    lsm_rows = lsm_async_path(servers, U_all, dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -1806,6 +2258,7 @@ def run(dev, kind: str) -> None:
         ta_row]
     kernels["kernels"].extend(recsys_rows)
     kernels["kernels"].extend(stream_rows)
+    kernels["kernels"].extend(lsm_rows)
     for row in kernels["kernels"]:
         check(row["launches"] > 0,
               f"the main path launched {row['name']} 0 times")

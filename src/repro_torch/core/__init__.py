@@ -41,6 +41,8 @@ from repro_torch.core.naive import (TopKResult, certificate_gaps,
                                     certified_counts, naive_topk)
 from repro_torch.core.partial import PartialTAStats, partial_threshold_topk_np
 from repro_torch.core import faults
+from repro_torch.core.lsm import (DEFAULT_L1_CAPACITY_FACTOR,
+                                  ShardedLsmCatalogue)
 from repro_torch.core.segments import (
     DEFAULT_DELTA_CAPACITY,
     DeltaSegment,
@@ -87,7 +89,8 @@ __all__ = [
     "layout_names", "DEFAULT_PREFIX_DEPTH",
     # robustness layer
     "certificate_gaps", "certified_counts",
-    # streaming tier, single level
+    # streaming tier and the LSM ladder
     "SegmentedCatalogue", "Snapshot", "DeltaSegment", "QueryInfo",
     "SegmentStats", "delta_bucket", "DEFAULT_DELTA_CAPACITY", "faults",
+    "ShardedLsmCatalogue", "DEFAULT_L1_CAPACITY_FACTOR",
 ]

@@ -209,6 +209,19 @@ def build_list_major(targets, index, prefix_depth: Optional[int] = None,
         rank_by_item=rank_by_item, prefix_depth=P)
 
 
+def round_robin_shares(n: int, n_shards: int, start: int = 0) -> np.ndarray:
+    """Rows each shard receives when ``n`` items are dealt round-robin
+    starting at cursor position ``start`` — the strided deal of the
+    reference's sharded norm layout, used by the LSM catalogue's L0 -> L1
+    fold (the fit check and the deal itself). Returns ``[n_shards]
+    int64``.
+    """
+    shares = np.full((n_shards,), n // n_shards, np.int64)
+    for i in range(n % n_shards):
+        shares[(start + i) % n_shards] += 1
+    return shares
+
+
 _BUILDERS = {
     "row_major": build_row_major,
     "norm_major": build_norm_major,

@@ -5,8 +5,9 @@ the norm order and every layout of :mod:`repro_torch.core.layout` are
 built offline. A retrieval tier must absorb inserts, updates and deletes
 without an index rebuild per mutation and without giving up exactness.
 This module is the port of the reference's single-level answer
-(``core/segments.py``); the LSM ladder on top of it comes with a later
-slice, so every L1/shard accessor returns the single-level value.
+(``core/segments.py``); the LSM ladder
+(:class:`repro_torch.core.lsm.ShardedLsmCatalogue`) subclasses it through
+the L1 hooks below, which return the single-level values here.
 
 * **Base segment** — an immutable snapshot: an
   :class:`repro_torch.core.engines.EngineContext` on the catalogue's
@@ -30,16 +31,23 @@ slice, so every L1/shard accessor returns the single-level value.
   segment's dense scores fold through the two-stage merge every engine
   uses (:func:`repro_torch.core.driver.merge_block_into_carry_batched`).
   Both the delta scoring and the merge are plain PyTorch: the reference
-  computes them outside any Pallas kernel.
+  computes them outside any Pallas kernel. The LSM ladder's L1 tier
+  merges first, shard by shard (:func:`_segmented_tail`).
 * **Compaction** — when the delta fills (or tombstones pass a threshold)
   the live rows of base + delta fold into a FRESH snapshot under the next
   ``version``: a new context on the device whose lazy state (index,
   layouts, kernel catalogue of every engine the old snapshot had
   prepared, and the warm spec's engines run once) the build readies
   before the swap. ``compact_async=True`` builds on a background
-  thread; its work runs on the default CUDA stream, so queries serialise
-  behind it and stay exact (overlap on streams is the async tier's).
-  Deletes that land during a build are re-applied at the swap.
+  thread; its work runs on the default CUDA stream. Deletes that land
+  during a build are re-applied at the swap.
+
+**Streams.** The catalogue's tensors are made and read on the current
+CUDA stream, the default one for every thread of the port: mutations,
+delta and L1 views, a compaction's build and every query, the async
+tier's included. One stream orders them all, so no query reads a tensor
+before the kernel that wrote it has run, and the caching allocator
+reuses freed memory only behind the work that read it.
 
 The port has no trace cache: ``SegmentStats.engine_compiles_total``
 counts the kernel library loads a build's readiness pass caused
@@ -65,6 +73,7 @@ from repro_torch.core.driver import (NEG_INF, merge_block_into_carry_batched,
 from repro_torch.core.engines import (Engine, EngineContext, batch_bucket,
                                       get_engine, pad_to_bucket)
 from repro_torch.core.naive import TopKResult, stable_topk
+from repro_torch.core.sharded import shard_fold_topk
 
 # Named fault points (DESIGN.md §12): no-ops until a test arms them via
 # repro_torch.core.faults.
@@ -144,7 +153,8 @@ class SegmentStats:
     are loaded. The port has no per-M-bucket executables, so no build
     pre-pays a next bucket and ``headroom_compiles_total`` stays 0.
     ``compaction_s_total``/``last_compaction_s`` time the whole build.
-    The L1 counters belong to the LSM ladder and stay 0 here.
+    The L1 counters belong to the LSM ladder and stay 0 on the
+    single-level catalogue.
     """
 
     n_inserts: int = 0
@@ -205,8 +215,9 @@ class Snapshot:
         fresh = ~self.dead_np[rows]
         self.dead_np[rows] = True
         # out of place: a new mask tensor, the captured one stays as it was
+        dev = self.dead_dev.device
         self.dead_dev = self.dead_dev.index_fill(
-            0, torch.from_numpy(rows).to(self.dead_dev.device), True)
+            0, torch.from_numpy(rows).to(dev), True)
         self.n_dead += int(np.sum(fresh))
 
 
@@ -282,8 +293,8 @@ class DeltaSegment:
         return self._dev
 
 
-def _segmented_tail(base_vals, tomb, base_gids, U, segs, *, k: int,
-                    kb: int):
+def _segmented_tail(base_vals, tomb, base_gids, U, segs, l1=None, *,
+                    k: int, kb: int):
     """Drop tombstones from the base top-``kb``, fold in the delta segments.
 
     ``base_vals [B, kb]`` is the base engine's exact top-``kb``
@@ -293,6 +304,15 @@ def _segmented_tail(base_vals, tomb, base_gids, U, segs, *, k: int,
     are re-topped to ``k`` (a stable sort: ties keep the engine's order),
     then each delta segment's dense scores merge in, the carry first
     (ties go to the base, as in the reference).
+
+    ``l1`` is the LSM ladder's per-shard L1 tier: ``None`` for the
+    single-level catalogue, else ``(rows [S, C, R], gids [S, C], live [S,
+    C])`` at the full per-shard run capacity. One ``[B, R] x [S, C, R]``
+    einsum scores every run densely, and the runs fold through
+    :func:`repro_torch.core.sharded.shard_fold_topk` (each shard's block
+    cut to k, shard 0 first) BEFORE the L0 chain and the active delta:
+    the merge order is the ladder's age order, as in the reference, and
+    so are the ids under ties.
 
     Returns ``(values, gids, n_dropped)``; ``n_dropped [B]`` counts the
     TOMBSTONED base rows inside the top-``kb`` (engine padding is not a
@@ -305,6 +325,11 @@ def _segmented_tail(base_vals, tomb, base_gids, U, segs, *, k: int,
     v, pos = stable_topk(v, min(k, kb))
     gi = torch.gather(gi, 1, pos)
     v, gi = pad_topk(v, gi, k)                # base smaller than k
+    if l1 is not None:
+        l1_rows, l1_gids, l1_live = l1
+        l1_scores = torch.einsum("br,scr->sbc", U, l1_rows)
+        l1_scores = torch.where(l1_live[:, None, :], l1_scores, NEG_INF)
+        v, gi = shard_fold_topk(v, gi, l1_scores, l1_gids, k)
     for rows, gid, live in segs:
         scores = U @ rows.T                   # [B, D] — one dense product
         scores = torch.where(live[None, :], scores, NEG_INF)
@@ -478,7 +503,22 @@ class SegmentedCatalogue:
         with self._lock:
             return len(self._frozen)
 
-    # -- the LSM ladder's accessors, at their single-level values ------------
+    # -- L1-tier hooks (single-level here; the LSM ladder overrides them) ----
+
+    def _l1_stack_locked(self):
+        """The stacked per-shard L1 device view, or ``None``. Lock held."""
+        return None
+
+    def _l1_live_locked(self) -> int:
+        """Live rows resident in the L1 tier. Lock held."""
+        return 0
+
+    def _chain_pressure_locked(self) -> int:
+        """Sealed segments counted against ``max_l0_segments``. The LSM
+        ladder leaves out the L1 runs an in-flight promotion parks in the
+        chain: queries already scored those rows through the L1 tier, so
+        they add no pressure. Lock held."""
+        return len(self._frozen)
 
     @property
     def n_shards(self) -> int:
@@ -700,7 +740,7 @@ class SegmentedCatalogue:
         attempts = 0
         while True:
             with self._lock:
-                if len(self._frozen) <= self.max_l0_segments:
+                if self._chain_pressure_locked() <= self.max_l0_segments:
                     return
                 t = self._build_thread
                 if t is None:
@@ -748,6 +788,38 @@ class SegmentedCatalogue:
                        budgets=budgets)
         return sum(ctx.trace_counts.values())
 
+    def _backoff_after(self, streak: int) -> float:
+        """Retry backoff after ``streak`` consecutive failures: doubling
+        from ``build_backoff_s``, capped at ``build_backoff_max_s``."""
+        return min(self.build_backoff_s * (2 ** (streak - 1)),
+                   self.build_backoff_max_s)
+
+    def _retry_gated(self, streak: int, not_before: float) -> bool:
+        """True when no automatic attempt may run after ``streak``
+        consecutive failures: past the retry limit, or, from the second
+        failure on, before the backoff deadline ``not_before``."""
+        return bool(streak) and (
+            streak > self.build_retry_limit
+            or (streak >= 2 and time.monotonic() < not_before))
+
+    def _record_build_failure_locked(self, exc: BaseException,
+                                     version: int) -> float:
+        """Record a failed build of ``version`` (lock held): the error,
+        the counters, the backoff deadline and the ``fail`` event.
+        Returns the backoff."""
+        self.last_build_error = exc
+        self.stats.n_failed_compactions += 1
+        self._consec_build_failures += 1
+        backoff = self._backoff_after(self._consec_build_failures)
+        self._last_backoff_s = backoff
+        self._retry_not_before = time.monotonic() + backoff
+        obs.on_compaction(
+            "fail", version_attempted=version, epoch=self._epoch,
+            error=repr(exc),
+            consecutive_failures=self._consec_build_failures,
+            backoff_s=backoff)
+        return backoff
+
     def _compact_locked(self, force: bool = False,
                         force_sync: bool = False) -> None:
         """Freeze the active delta and rebuild (inline or on a thread).
@@ -773,13 +845,9 @@ class SegmentedCatalogue:
                                           len(self._frozen))
         if self._build_thread is not None:
             return                            # in-flight build; chain waits
-        if not force and self._consec_build_failures:
-            # past the retry limit: no automatic attempt; from the second
-            # consecutive failure on, wait out the backoff
-            if (self._consec_build_failures > self.build_retry_limit
-                    or (self._consec_build_failures >= 2
-                        and time.monotonic() < self._retry_not_before)):
-                return
+        if not force and self._retry_gated(self._consec_build_failures,
+                                           self._retry_not_before):
+            return
         snap = self._snapshot
         folding = list(self._frozen)
         # pending_dead holds kills landing AFTER this capture; entries of
@@ -841,20 +909,8 @@ class SegmentedCatalogue:
                 # middle of a mutation batch, and raising there would
                 # lose the batch's appends. compact(wait=True) surfaces it.
                 with self._lock:
-                    self.last_build_error = exc
-                    self.stats.n_failed_compactions += 1
-                    self._consec_build_failures += 1
-                    backoff = min(
-                        self.build_backoff_s
-                        * (2 ** (self._consec_build_failures - 1)),
-                        self.build_backoff_max_s)
-                    self._last_backoff_s = backoff
-                    self._retry_not_before = time.monotonic() + backoff
-                    obs.on_compaction(
-                        "fail", version_attempted=version,
-                        epoch=self._epoch, error=repr(exc),
-                        consecutive_failures=self._consec_build_failures,
-                        backoff_s=backoff)
+                    backoff = self._record_build_failure_locked(exc,
+                                                                version)
                     if (self.auto_retry and self.compact_async
                             and self._consec_build_failures
                             <= self.build_retry_limit
@@ -956,21 +1012,24 @@ class SegmentedCatalogue:
         batch's ``engine.batch_config``, when the caller has it.
 
         The batch runs against ONE state captured under the lock
-        (snapshot, dead mask, delta views): later mutations are not
-        visible to it. The base ids resolve to (tombstone, gid) on the
-        device; the escalation test reads one boolean per rung.
+        (snapshot, dead mask, delta views, the L1 tier): later mutations
+        are not visible to it. The base ids resolve to (tombstone, gid) on
+        the device; the escalation test reads one boolean per rung.
         """
         with self._lock:
             snap = self._snapshot
             segs = [s for s in self._segments() if s.count > 0]
             views = tuple(s.device_view() for s in segs)
-            n_delta_live = sum(s.n_live for s in segs)
+            l1 = self._l1_stack_locked()      # None: no L1 tier / empty
+            n_delta_live = (sum(s.n_live for s in segs)
+                            + self._l1_live_locked())
             n_dead = snap.n_dead
             dead_dev, gids_dev = snap.dead_dev, snap.gids_dev
-        if not views and n_dead == 0 and snap.identity:
+        k = int(k)
+        if not views and l1 is None and n_dead == 0 and snap.identity:
             # never-mutated fast path: exactly the static server's
             res = engine.run(snap.ctx, U, k, budget=budget, bcfg=bcfg)
-            return res, QueryInfo(0, min(int(k), snap.num_rows), 0,
+            return res, QueryInfo(0, min(k, snap.num_rows), 0,
                                   snap.version)
         U_dev = torch.atleast_2d(torch.as_tensor(
             U, dtype=torch.float32, device=snap.ctx.device))
@@ -986,12 +1045,11 @@ class SegmentedCatalogue:
             tomb = real & dead_dev[safe]
             bg = torch.where(real, gids_dev[safe], -1)
             vals, gids, dropped = _segmented_tail(
-                res.values, tomb, bg, U_dev, views, k=k, kb=kb)
+                res.values, tomb, bg, U_dev, views, l1, k=k, kb=kb)
             return res, vals, gids, dropped
 
         # tombstone-adaptive base fetch: plain k with no dead rows, the
         # k + reserve rung the moment tombstones exist
-        k = int(k)
         kb = min(mb, k if n_dead == 0 else k + self.overfetch_reserve)
         res, vals, gids, dropped = run_at(kb)
         retried = False
@@ -1020,7 +1078,10 @@ class SegmentedCatalogue:
         """Ready the snapshot for tombstoned traffic: with ``engines``,
         run them at the over-fetched ``k + overfetch_reserve`` (the fetch
         of any tombstoned snapshot) so their state at that ``k`` is
-        built. The segmented tail is plain PyTorch and needs no warming."""
+        built. The segmented tail is plain PyTorch and needs no warming:
+        the port has no per-shape tail cache, so the reference's
+        ``_warm_l1_variants`` (the L1 tier's tail shapes) has no
+        counterpart."""
         snap = self._snapshot
         kb_esc = min(snap.num_rows, int(k) + self.overfetch_reserve)
         if engines and kb_esc > min(snap.num_rows, int(k)):

@@ -24,7 +24,10 @@ buffer and tombstones. :meth:`TopKServer.add_targets` /
 index rebuild and without giving up exactness; a threshold-triggered
 compaction folds the mutations into a fresh snapshot on the device under
 the next version. A never-mutated server runs exactly the static path.
-The LSM ladder (``n_shards > 0``) comes with a later slice and raises.
+``n_shards > 0`` fronts the catalogue with the LSM ladder
+(:class:`repro_torch.core.lsm.ShardedLsmCatalogue`): per-shard L1 runs
+absorb most compactions as folds, with a full rebuild only when the tier
+overflows.
 
 Every seam reports into :mod:`repro_torch.obs`, as the reference's does.
 
@@ -47,6 +50,7 @@ from repro_torch.core.engines import (CostTable, Engine, EngineContext,
                                       batch_bucket, engine_names, get_engine,
                                       note_pruning_metrics, select_engine)
 from repro_torch.core.index import TopKIndex
+from repro_torch.core.lsm import ShardedLsmCatalogue
 from repro_torch.core.naive import TopKResult
 from repro_torch.core.segments import SegmentedCatalogue
 from repro_torch.core.seplr import SepLRModel
@@ -223,30 +227,35 @@ class TopKServer:
 
     ``delta_capacity``, ``compact_async`` and ``max_tombstones`` configure
     the :class:`SegmentedCatalogue` (``max_tombstones=None`` keeps its
-    default, ``2 * delta_capacity``). The cost table is shared by every
-    context a compaction builds, so measurements survive snapshot swaps.
+    default, ``2 * delta_capacity``); ``n_shards > 0`` makes it a
+    :class:`ShardedLsmCatalogue` of that many L1 runs, each of
+    ``l1_capacity`` rows (``None``: its default). The cost table is shared
+    by every context a compaction builds, so measurements survive
+    snapshot swaps.
     """
 
     def __init__(self, model: SepLRModel, max_batch: int = 64,
                  block_size: int = 256, delta_capacity: int = 256,
                  compact_async: bool = False,
                  policy: Optional[AdmissionPolicy] = None, n_shards: int = 0,
+                 l1_capacity: Optional[int] = None,
                  max_tombstones: Optional[int] = None,
                  cost_table: Optional[CostTable] = None, device=None):
-        if n_shards > 0:
-            raise NotImplementedError(
-                "n_shards > 0 (the LSM ladder of the streaming tier) comes "
-                "with ROADMAP item A3")
         self.model = model
         self.device = resolve_device(device)
         self.cost_table = cost_table if cost_table is not None \
             else CostTable()
         tomb = {} if max_tombstones is None \
             else {"max_tombstones": max_tombstones}
-        self.catalogue = SegmentedCatalogue(
-            model.targets, delta_capacity=delta_capacity,
-            compact_async=compact_async, block_size=block_size,
-            cost_table=self.cost_table, device=self.device, **tomb)
+        kw = dict(delta_capacity=delta_capacity,
+                  compact_async=compact_async, block_size=block_size,
+                  cost_table=self.cost_table, device=self.device, **tomb)
+        if n_shards > 0:
+            self.catalogue: SegmentedCatalogue = ShardedLsmCatalogue(
+                model.targets, n_shards=n_shards, l1_capacity=l1_capacity,
+                **kw)
+        else:
+            self.catalogue = SegmentedCatalogue(model.targets, **kw)
         self.max_batch = max_batch
         self.block_size = block_size
         self.stats: Dict[str, ServeStats] = {}
@@ -345,7 +354,7 @@ class TopKServer:
             "consecutive_build_failures": cat.consecutive_build_failures,
             "current_backoff_s": cat.current_backoff_s,
             "retry_pending": int(cat.retry_pending),
-            # the LSM ladder's keys, at their single-level values
+            # the LSM ladder's keys (neutral on the single-level catalogue)
             "n_shards": cat.n_shards,
             "l1_rows": cat.l1_rows,
             "n_l1_folds": cat.stats.n_l1_folds,

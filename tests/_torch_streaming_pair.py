@@ -2,7 +2,8 @@
 
 :class:`Pair` holds the reference's ``SegmentedCatalogue`` (JAX, the
 CPU) and the port's (``device="cpu"``: its tail and engines in plain
-PyTorch) over the same rows, applies every mutation to both, and holds
+PyTorch) over the same rows — or, with ``n_shards > 0``, both packages'
+``ShardedLsmCatalogue`` — applies every mutation to both, and holds
 every query of the port against the reference's: values (1e-5 relative),
 ids id for id where scores are distinct and as a multiset per query,
 ``n_scored``, ``depth`` and every field of ``QueryInfo``. Reads of state
@@ -19,8 +20,10 @@ import numpy as np
 
 from repro.core import faults as ref_faults
 from repro.core import get_engine as ref_get_engine
+from repro.core.lsm import ShardedLsmCatalogue as RefLsm
 from repro.core.segments import SegmentedCatalogue as RefCatalogue
 from repro_torch.core import faults, get_engine
+from repro_torch.core.lsm import ShardedLsmCatalogue
 from repro_torch.core.segments import SegmentedCatalogue
 
 from _torch_parity import assert_ids_where_distinct, assert_values, host
@@ -85,10 +88,15 @@ def _same_outcome(ref_call, port_call):
 class Pair:
     """Both packages' catalogues over the same rows (see the module)."""
 
-    def __init__(self, targets, **kw):
+    def __init__(self, targets, n_shards=0, **kw):
         targets = np.asarray(targets, np.float32)
-        self.ref = RefCatalogue(targets, **kw)
-        self.port = SegmentedCatalogue(targets, device="cpu", **kw)
+        if n_shards:
+            self.ref = RefLsm(targets, n_shards=n_shards, **kw)
+            self.port = ShardedLsmCatalogue(targets, n_shards=n_shards,
+                                            device="cpu", **kw)
+        else:
+            self.ref = RefCatalogue(targets, **kw)
+            self.port = SegmentedCatalogue(targets, device="cpu", **kw)
 
     def __getattr__(self, name):
         return getattr(self.port, name)
@@ -110,6 +118,10 @@ class Pair:
     def compact(self, wait=True):
         _same_outcome(lambda: self.ref.compact(wait=wait),
                       lambda: self.port.compact(wait=wait))
+
+    def promote(self, wait=True):
+        _same_outcome(lambda: self.ref.promote(wait=wait),
+                      lambda: self.port.promote(wait=wait))
 
     def flush(self):
         self.ref.flush()
@@ -141,7 +153,8 @@ class Pair:
         np.testing.assert_array_equal(rows_p, rows_r)
         for name in ("num_live", "n_tombstones", "delta_occupancy",
                      "version", "l0_chain_len", "consecutive_build_failures",
-                     "n_shards", "l1_rows", "pristine", "cache_token"):
+                     "n_shards", "l1_rows", "consecutive_fold_failures",
+                     "pristine", "cache_token"):
             got, want = getattr(self.port, name), getattr(self.ref, name)
             if callable(got):
                 got, want = got(), want()

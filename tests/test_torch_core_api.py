@@ -16,8 +16,6 @@ import repro.core as ref_core
 import repro_torch.core as core
 
 NOT_YET_PORTED = {
-    # A3: the LSM ladder
-    "ShardedLsmCatalogue": "A3", "DEFAULT_L1_CAPACITY_FACTOR": "A3",
     # A5: sharding
     "sharded_naive_topk": "A5", "sharded_blocked_topk": "A5",
     "sharded_norm_topk": "A5", "hierarchical_merge_topk": "A5",
@@ -76,8 +74,8 @@ def test_exported_name_is_its_defining_modules_object(name):
     if owner is None or not owner.startswith("repro_torch.core."):
         # a constant: find the port module that defines it
         owners = [m for m in ("blocked", "driver", "engines", "index",
-                              "layout", "naive", "segments", "seplr",
-                              "strategies", "threshold")
+                              "layout", "lsm", "naive", "segments",
+                              "seplr", "strategies", "threshold")
                   if name in vars(importlib.import_module(
                       f"repro_torch.core.{m}"))]
         assert owners, f"{name} is defined in no port core module"

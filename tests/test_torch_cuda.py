@@ -687,3 +687,128 @@ def test_streaming_background_and_failed_builds_on_the_card():
         assert s.mutation_stats["n_failed_compactions"] == 1
     _assert_same_streamed(card, cpu, U, "topk_mips")
     assert card.mutation_stats["engine_compiles_total"] == 0
+
+
+# the async front end over the LSM ladder on the card
+# ---------------------------------------------------------------------------
+
+ASYNC_WAIT_S = 120
+
+
+def _async_pair(T, **kw):
+    from repro_torch.core.seplr import SepLRModel
+    from repro_torch.serving.pipeline import AsyncTopKServer
+    return [AsyncTopKServer(SepLRModel(T, device=dev), max_batch=16,
+                            block_size=64, device=dev, **kw)
+            for dev in ("cuda", "cpu")]
+
+
+def test_async_ladder_on_the_card_matches_the_cpu():
+    """AsyncTopKServer over a 4-shard ladder: single requests (a batch of
+    one on both devices) through folds, kills in the L1 runs and the
+    base, a promotion and a bta request; the card answers as the CPU
+    does, counts included, and launches kernel B1."""
+    _need_card()
+    rng = np.random.default_rng(75)
+    T = rng.standard_normal((4000, 16)).astype(np.float32)
+    U = rng.standard_normal((12, 16)).astype(np.float32)
+    card, cpu = _async_pair(T, method="topk_mips", delta_capacity=16,
+                            n_shards=4)
+    rows = rng.standard_normal((120, 16)).astype(np.float32)
+
+    def ask(u, method=None):
+        got, want = (s.submit(u, 10, method=method).result(
+            timeout=ASYNC_WAIT_S) for s in (card, cpu))
+        assert_topk_equal((torch.from_numpy(got.values),
+                           torch.from_numpy(got.indices)),
+                          (torch.from_numpy(want.values),
+                           torch.from_numpy(want.indices)))
+        for f in ("n_scored", "depth"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+    with card, cpu:
+        b1 = topk_mips.launches
+        for s in (card, cpu):
+            gids = s.add_targets(rows[:50])   # three folds
+        assert card.catalogue.stats.n_l1_folds == 3 \
+            == cpu.catalogue.stats.n_l1_folds
+        for u in U[:4]:
+            ask(u)
+        assert topk_mips.launches > b1
+        l1_gid = int(gids[0])
+        assert card.catalogue._locate(l1_gid)[0] == "l1"
+        for s in (card, cpu):
+            s.delete_targets([l1_gid, 7])
+            s.update_targets([11], rows[50:51])
+        for u in U[4:8]:
+            ask(u)
+        ask(U[8], method="bta")
+        for s in (card, cpu):
+            s.catalogue.promote(wait=True)
+            assert s.catalogue.l1_rows == 0
+        for u in U[8:]:
+            ask(u)
+    assert card.mutation_stats["engine_compiles_total"] == 0
+
+
+def test_async_stress_concurrent_mutations_on_the_card():
+    """8 submitting threads while another thread mutates the ladder
+    (folds, promotions on a background build): each result equals the
+    dense top-k of SOME state the catalogue passed through, and nothing
+    hangs. A tensor read before the work that wrote it shows here as a result
+    of no state."""
+    import threading
+    _need_card()
+    rng = np.random.default_rng(76)
+    T = rng.standard_normal((20000, 32)).astype(np.float32)
+    U = rng.standard_normal((64, 32)).astype(np.float32)
+    card, _ = _async_pair(T, method="topk_mips", delta_capacity=16,
+                          n_shards=4, l1_capacity=32, compact_async=True)
+    card.warmup(10, engines=["topk_mips", "norm"])
+    states = [card.catalogue.as_dense()]
+    results, errors = [], []
+
+    def mutate():
+        try:
+            for _ in range(30):
+                rows = 3.0 * rng.standard_normal((8, 32)).astype(np.float32)
+                card.add_targets(rows)
+                states.append(card.catalogue.as_dense())
+                gids = states[-1][1]
+                card.delete_targets(rng.choice(gids, 2, replace=False))
+                states.append(card.catalogue.as_dense())
+        except Exception as exc:              # reported below
+            errors.append(exc)
+
+    def client(j):
+        try:
+            for i in range(16):
+                q = (j * 16 + i) % len(U)
+                res = card.submit(U[q], 10).result(timeout=ASYNC_WAIT_S)
+                results.append((q, res))
+        except Exception as exc:              # reported below
+            errors.append(exc)
+
+    with card:
+        threads = [threading.Thread(target=mutate)] + [
+            threading.Thread(target=client, args=(j,)) for j in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(ASYNC_WAIT_S)
+        assert not any(t.is_alive() for t in threads), "a thread hung"
+        card.catalogue.flush()
+    assert not errors, errors
+    assert len(results) == 128
+    assert card.catalogue.stats.n_l1_folds > 0
+    Ud = U.astype(np.float64)
+    oracles = []
+    for rows, gids in states:
+        s = Ud @ rows.astype(np.float64).T
+        top = np.argsort(-s, axis=1, kind="stable")[:, :10]
+        oracles.append((np.take_along_axis(s, top, 1), gids[top]))
+    for q, res in results:
+        ok = any(np.allclose(res.values[0], ov[q], rtol=1e-5, atol=1e-4)
+                 and set(res.indices[0].tolist()) == set(og[q].tolist())
+                 for ov, og in oracles)
+        assert ok, f"query {q}: a result of no state the catalogue had"

@@ -212,20 +212,21 @@ def test_server_validation_and_later_slices(servers):
         srv.query(bad, 5, method="naive")
     with pytest.raises(ValueError, match="deadline_ms must be"):
         srv.query(U, 5, method="naive", deadline_ms=-1.0)
-    # the streaming tier's mutations serve (a server of their own: the
-    # fixture's stays static); the LSM ladder is a later slice
-    mut = TopKServer(srv.model, max_batch=16, block_size=64, device="cpu")
-    new = mut.add_targets(U[:1])
-    mut.delete_targets([0])
-    mut.update_targets([1], U[1:2])
-    assert mut.mutation_stats["num_live"] == srv.ctx.num_targets
-    assert int(new[0]) == srv.ctx.num_targets
-    rows, gids = mut.catalogue.as_dense()
-    best = gids[np.argmax(U[:4].astype(np.float64) @ rows.T, axis=1)]
-    np.testing.assert_array_equal(
-        mut.query(U[:4], 1, method="naive").indices[:, 0], best)
-    with pytest.raises(NotImplementedError, match="streaming.*A3"):
-        TopKServer(srv.model, n_shards=2, device="cpu")
+    # the streaming tier's mutations serve (servers of their own: the
+    # fixture's stays static), single-level and over the LSM ladder
+    for n_shards in (0, 2):
+        mut = TopKServer(srv.model, max_batch=16, block_size=64,
+                         n_shards=n_shards, device="cpu")
+        assert mut.catalogue.n_shards == n_shards
+        new = mut.add_targets(U[:1])
+        mut.delete_targets([0])
+        mut.update_targets([1], U[1:2])
+        assert mut.mutation_stats["num_live"] == srv.ctx.num_targets
+        assert int(new[0]) == srv.ctx.num_targets
+        rows, gids = mut.catalogue.as_dense()
+        best = gids[np.argmax(U[:4].astype(np.float64) @ rows.T, axis=1)]
+        np.testing.assert_array_equal(
+            mut.query(U[:4], 1, method="naive").indices[:, 0], best)
 
 
 def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):

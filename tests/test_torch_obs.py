@@ -4,11 +4,13 @@
 run on both packages (``pkg``): the registry, histograms, snapshot
 schema, Prometheus text, tracer, journal, the ``ServeStats`` façade,
 ``mutation_stats``' schema, concurrent recording, the live certificate
-metrics and the fault event. (Its two async-pipeline cases wait for the
-port's async tier.) Then the same served sequence — chunked queries,
-a budgeted and a shed chunk, mutations through a compaction — through
-both servers gives the same snapshot keys and series, valid under both
-schemas, and the same Prometheus sample names."""
+metrics and the fault event; its two async-pipeline cases (one
+request's span tree joins the compaction and the L0 -> L1 fold events
+of the journal by ``(version, epoch)``) run on the port. Then the same
+served sequence — chunked queries, a budgeted and a shed chunk,
+mutations through a compaction — through both servers gives the same
+snapshot keys and series, valid under both schemas, and the same
+Prometheus sample names."""
 
 import threading
 import types
@@ -21,12 +23,16 @@ import repro.obs as ref_obs
 import repro_torch.obs as obs
 from repro.core import SepLRModel as RefModel
 from repro.core import certificate_gaps as ref_certificate_gaps
+from repro.core import ShardedLsmCatalogue as RefLsm
 from repro.core import faults as ref_faults
 from repro.core.engines import batch_bucket as ref_batch_bucket
 from repro.serving.server import LATENCY_RING as REF_LATENCY_RING
 from repro.serving.server import ServeStats as RefServeStats
+from repro.serving.pipeline import AsyncTopKServer as RefAsync
 from repro.serving.server import TopKServer as RefServer
-from repro_torch.core import SepLRModel, certificate_gaps, faults
+from repro_torch.core import (SepLRModel, ShardedLsmCatalogue,
+                              certificate_gaps, faults)
+from repro_torch.serving.pipeline import AsyncTopKServer
 from repro_torch.core.engines import batch_bucket
 from repro_torch.serving.server import LATENCY_RING, ServeStats, TopKServer
 
@@ -35,7 +41,9 @@ PKGS = {
         obs=ref_obs, ServeStats=RefServeStats, LATENCY_RING=REF_LATENCY_RING,
         faults=ref_faults, certificate_gaps=ref_certificate_gaps,
         batch_bucket=ref_batch_bucket,
-        server=lambda T, **kw: RefServer(RefModel(T), **kw)),
+        server=lambda T, **kw: RefServer(RefModel(T), **kw),
+        async_server=lambda T, **kw: RefAsync(RefModel(T), **kw),
+        ShardedLsmCatalogue=RefLsm),
     "port": types.SimpleNamespace(
         obs=obs, ServeStats=ServeStats, LATENCY_RING=LATENCY_RING,
         faults=faults, batch_bucket=batch_bucket,
@@ -43,7 +51,10 @@ PKGS = {
         certificate_gaps=lambda res: certificate_gaps(type(res)(*(
             None if x is None else torch.as_tensor(x) for x in res))),
         server=lambda T, **kw: TopKServer(SepLRModel(T, device="cpu"),
-                                          device="cpu", **kw)),
+                                          device="cpu", **kw),
+        async_server=lambda T, **kw: AsyncTopKServer(
+            SepLRModel(T, device="cpu"), device="cpu", **kw),
+        ShardedLsmCatalogue=ShardedLsmCatalogue),
 }
 
 
@@ -344,6 +355,81 @@ def test_fault_firing_emits_event(pkg):
     assert pkg.obs.FAULTS_FIRED.value(point="compaction.build") == 1
     ev = pkg.obs.JOURNAL.events("fault.fired")
     assert ev and ev[-1].fields["point"] == "compaction.build"
+
+
+# the reference's arm of the two async cases is tests/test_obs.py's own
+# (its warmup compiles every bucket: minutes of this file's time)
+@pytest.mark.parametrize("pkg", ["port"], indirect=True)
+def test_async_request_span_joins_compaction_event(pkg):
+    """One async request's span tree names the engine, the cost-table
+    entry, the stage spans and the (version, epoch) it ran against, and
+    that version joins the compaction.success event that made the
+    snapshot."""
+    obs_ = pkg.obs
+    rng = np.random.default_rng(9)
+    T = rng.standard_normal((227, 7)).astype(np.float32)
+    with pkg.async_server(T, max_batch=8, delta_capacity=8,
+                          method="bta") as srv:
+        srv.warmup(4)
+        obs_.reset()
+        # force a synchronous compaction: > capacity appends
+        srv.add_targets(rng.standard_normal((9, 7)).astype(np.float32))
+        comp = obs_.JOURNAL.events("compaction.success")
+        assert comp, "mutation burst must have compacted"
+        version = comp[-1].fields["version"]
+        h = srv.submit(rng.standard_normal(7).astype(np.float32), 4)
+        h.result(timeout=60)
+        t = obs_.TRACER.traces()[-1]
+        names = [sp.name for sp in t.spans]
+        for stage in ("queue_wait", "coalesce", "route", "dispatch",
+                      "device", "harvest", "merge"):
+            assert stage in names, stage
+        assert all(sp.t_end is not None for sp in t.spans)
+        dev = t.find("device")
+        assert dev.attrs["engine"] == "bta"
+        assert "bta" in t.find("route").attrs["cost_entry"]
+        assert t.find("queue_wait").duration_us >= 0.0
+        assert dev.attrs["version"] == version
+        assert t.root.attrs["version"] == version
+        joined = obs_.JOURNAL.events("compaction.success",
+                                     version=dev.attrs["version"])
+        assert len(joined) == 1
+        assert obs_.QUERIES.value(engine="bta") >= 1
+        assert obs_.REQUEST_LATENCY.count(engine="bta") >= 1
+
+
+@pytest.mark.parametrize("pkg", ["port"], indirect=True)
+def test_async_request_span_joins_fold_event(pkg):
+    """Across the LSM ladder (4 shards): an L0 -> L1 fold journals
+    compaction.fold_l1 under the same (version, epoch) join keys, moves no
+    epoch, and a traced request that ran against the folded catalogue
+    joins it by both keys."""
+    obs_ = pkg.obs
+    rng = np.random.default_rng(23)
+    T = rng.standard_normal((113, 7)).astype(np.float32)
+    with pkg.async_server(T, max_batch=8, delta_capacity=8, method="bta",
+                          n_shards=4) as srv:
+        assert isinstance(srv.server.catalogue, pkg.ShardedLsmCatalogue)
+        srv.warmup(4)
+        obs_.reset()
+        srv.add_targets(rng.standard_normal((5, 7)).astype(np.float32))
+        token = srv.catalogue.cache_token()
+        srv.server.catalogue.compact(wait=True)
+        assert srv.catalogue.cache_token() == token   # a fold moves nothing
+        folds = obs_.JOURNAL.events("compaction.fold_l1")
+        assert folds, "overflow must have folded, not rebuilt"
+        assert not obs_.JOURNAL.events("compaction.success")
+        ev = folds[-1].fields
+        assert ev["rows_folded"] >= 1 and ev["l1_rows"] >= 1
+        h = srv.submit(rng.standard_normal(7).astype(np.float32), 4)
+        h.result(timeout=60)
+        dev = obs_.TRACER.traces()[-1].find("device")
+        assert dev.attrs["version"] == ev["version"]
+        assert dev.attrs["epoch"] == ev["epoch"]
+        joined = obs_.JOURNAL.events("compaction.fold_l1",
+                                     version=dev.attrs["version"],
+                                     epoch=dev.attrs["epoch"])
+        assert joined and joined[-1].fields == ev
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,19 @@
-"""The seeded schedule sweep of ``tests/test_streaming_properties.py``,
-at shard count 0, on the port's single-level catalogue.
+"""The seeded schedule sweep of ``tests/test_streaming_properties.py``
+on the port's streaming catalogues.
 
 Interleaved insert / update / delete / query / compact / flush / fault
-schedules (synchronous and background builds, injected build failures)
-run against the port's :class:`SegmentedCatalogue` on the CPU, and EVERY
-query is checked against the reference's fresh-rebuild oracle: an
-independent ``{gid: row}`` shadow dict scored in float64. Each seed
-draws its schedule exactly as the reference's ``_run_one_schedule`` does
-(the shard count is drawn and set to 0), so seed ``s`` here replays the
-reference's schedule ``s`` on the single-level catalogue.
-``STREAMING_SCHEDULES`` sets the sweep's length (default 200, the
-reference's acceptance sweep: the port's CPU replay takes about two
-seconds). The synchronous schedules among the first 30 also replay
-through both packages in lockstep (:class:`_torch_streaming_pair.Pair`):
-values, ids, counts and ``QueryInfo`` equal the reference's at every
-query.
+schedules (synchronous and background builds, injected build and fold
+failures) run against the port's :class:`SegmentedCatalogue` (shard
+count 0) or :class:`ShardedLsmCatalogue` (``l1_capacity=8``) on the CPU,
+and EVERY query is checked against the reference's fresh-rebuild oracle:
+an independent ``{gid: row}`` shadow dict scored in float64. Each seed
+draws its schedule, shard count included, exactly as the reference's
+``_run_one_schedule`` does, so seed ``s`` here replays the reference's
+schedule ``s``, ``fault_fold`` included. ``STREAMING_SCHEDULES`` sets the
+sweep's length (default 200, the reference's acceptance sweep). The
+synchronous schedules among the first 30 also replay through both
+packages in lockstep (:class:`_torch_streaming_pair.Pair`): values, ids,
+counts and ``QueryInfo`` equal the reference's at every query.
 """
 
 import os
@@ -22,7 +21,8 @@ import os
 import numpy as np
 import pytest
 
-from repro_torch.core import SegmentedCatalogue, faults, get_engine
+from repro_torch.core import (SegmentedCatalogue, ShardedLsmCatalogue,
+                              faults, get_engine)
 
 from _torch_streaming_pair import Pair, arm_both, disarm_all_both
 
@@ -30,7 +30,7 @@ R = 6
 K = 4
 
 BOUNDARY_M = [7, 8, 9, 15, 16, 17, 31, 32, 33]
-SHARD_COUNTS = [0, 1, 4, 8]          # drawn as the reference draws; 0 runs
+SHARD_COUNTS = [0, 1, 4, 8]          # 0 = single-level SegmentedCatalogue
 
 _KINDS = ["insert", "delete", "update", "query", "compact", "flush",
           "fault_build", "fault_fold"]
@@ -49,11 +49,15 @@ def _rows(rng, n, positive):
     return np.abs(r) if positive else r
 
 
-def _make(base, compact_async, pair=False):
+def _make(base, n_shards, compact_async, pair=False):
     kw = dict(delta_capacity=4, block_size=8, compact_async=compact_async,
               build_backoff_s=0.0, max_l0_segments=8)
+    if n_shards:
+        kw.update(n_shards=n_shards, l1_capacity=8)
     if pair:
         return Pair(base, **kw)
+    if n_shards:
+        return ShardedLsmCatalogue(base, device="cpu", **kw)
     return SegmentedCatalogue(base, device="cpu", **kw)
 
 
@@ -127,7 +131,7 @@ def _replay(cat, shadow, ops, rng, positive):
         elif kind == "fault_build":
             _arm(cat, "compaction.build")
         elif kind == "fault_fold":
-            _arm(cat, "compaction.fold_l1")   # nothing fires it at 0 shards
+            _arm(cat, "compaction.fold_l1")   # fires at a ladder's fold
     _check_query(cat, shadow, _rows(rng, 2, positive))
     if isinstance(cat, Pair):
         cat.check_state()
@@ -149,21 +153,22 @@ def _draw_schedule(rng):
 
 
 def _draw(seed):
-    """The reference's draw for ``seed``: (m0, positive, compact_async,
-    ops, the generator positioned where its replay starts)."""
+    """The reference's draw for ``seed``: (n_shards, m0, positive,
+    compact_async, ops, the generator positioned where its replay
+    starts)."""
     rng = np.random.default_rng(seed)
-    rng.integers(len(SHARD_COUNTS))           # the shard count: 0 here
+    n_shards = SHARD_COUNTS[int(rng.integers(len(SHARD_COUNTS)))]
     m0 = BOUNDARY_M[int(rng.integers(len(BOUNDARY_M)))]
     positive = bool(rng.integers(2))
     compact_async = bool(rng.integers(2))
     ops = _draw_schedule(rng)
-    return m0, positive, compact_async, ops, rng
+    return n_shards, m0, positive, compact_async, ops, rng
 
 
 def _run_one_schedule(seed, pair=False):
-    m0, positive, compact_async, ops, rng = _draw(seed)
+    n_shards, m0, positive, compact_async, ops, rng = _draw(seed)
     base = _rows(rng, m0, positive)
-    cat = _make(base, compact_async, pair)
+    cat = _make(base, n_shards, compact_async, pair)
     shadow = {i: base[i] for i in range(m0)}
     try:
         _replay(cat, shadow, ops, rng, positive)
@@ -189,8 +194,8 @@ def test_synchronous_schedules_match_the_reference():
     """The sweep's synchronous schedules through both packages in
     lockstep: every query count-equal to the reference's, and the same
     visible contents and counters at the end."""
-    seeds = [s for s in range(30) if not _draw(s)[2]]
-    assert seeds
+    seeds = [s for s in range(30) if not _draw(s)[3]]
+    assert seeds and {_draw(s)[0] for s in seeds} == set(SHARD_COUNTS)
     for seed in seeds:
         try:
             _run_one_schedule(seed, pair=True)
