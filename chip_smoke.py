@@ -152,7 +152,25 @@ checkout. In order, it
     the coalesced batch's shape (B = 8, k = 42) and B4 at the ``bta``
     micro-batch's first tail block against their plain versions, timed:
     two rows of the kernels line;
-14. prints one ``{"kernels": [...]}`` line and, last, the device line
+14. the sharded slice at LSHTC-like, with the counters set to 0 just
+    before and read just after: (a) one 64-query chunk through
+    ``TopKServer.query(method="norm_sharded")`` on the default mesh (one
+    shard on the one card), exact against ``naive`` and with ``n_scored``
+    and ``depth`` equal to ``norm``'s on the same chunk; (b) the four
+    strategies over a ``("data",)`` mesh of 4 logical shards on the card
+    — ``sharded_naive_topk``, ``sharded_blocked_topk`` (16 queries, block
+    512, per-slab sorted lists; its candidates scored by kernel B4),
+    ``sharded_norm_topk`` through the ``norm_sharded`` engine on a
+    context whose mesh is the 4 shards — and ``hierarchical_merge_topk``
+    over a ``(2, 2)`` ``("pod", "data")`` mesh, each exact against
+    ``naive`` and equal (values, ids, ``n_scored``, ``depth``) to the same
+    call on a CPU mesh of the same shape; (c) B4's launches on the
+    blocked path (one a step), then B4 held against its plain version at
+    the blocked strategy's first step (64 lanes x 51,200 ids), timed as
+    in 4: a row of the kernels line; and, timed too, at the first step a
+    64-query micro-batch would give it (256 lanes). It prints the
+    phase's seconds;
+15. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -249,6 +267,12 @@ LSM_WAIT_S = 300
 # the coalesced batch B1 is timed at (8 closed-loop clients) and the
 # tombstoned catalogue's first fetch, k + overfetch_reserve
 LSM_B1_BATCH, LSM_B1_K = 8, 42
+# The sharded phase: 4 logical shards on the card; the blocked strategy's
+# queries and block (its flat-spectrum scan runs deep, and the CPU mesh
+# replays it with B4's plain version, which materialises the gathered rows)
+SHARDS = 4
+SHARDED_BLOCKED_QUERIES = 16
+SHARDED_BLOCK = 512
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -1953,6 +1977,164 @@ def oracle_path(dev) -> None:
           + "; partial's n_scored equals ta's query for query", flush=True)
 
 
+def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
+    """Step 14 of the module docstring. ``results`` holds the LSHTC-like
+    ``naive`` and ``norm`` runs of the main path; ``cpu_ctx`` is a CPU
+    context over the same catalogue and index. Returns B4's row of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (EngineContext, get_engine,
+                                  hierarchical_merge_topk,
+                                  sharded_blocked_topk, sharded_naive_topk)
+    from repro_torch.core.index import build_index
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    t_phase = time.perf_counter()
+    srv = servers[LSH]
+    gctx = srv.ctx
+    T = gctx.targets
+    M, R = T.shape
+    ml = M // SHARDS
+    U64 = U_all[LSH][:BATCH]
+    nb = SHARDED_BLOCKED_QUERIES
+    t0 = time.perf_counter()
+    slabs = [build_index(T[s * ml:(s + 1) * ml], device=dev)
+             for s in range(SHARDS)]
+    lists = {dev.type: tuple(torch.cat([getattr(i, f) for i in slabs], 1)
+                             for f in ("order_desc", "t_sorted_desc"))}
+    lists["cpu"] = tuple(x.cpu() for x in lists[dev.type])
+    print(f"sharded: {SHARDS} slab indices of {ml} x {R} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    where = {dev.type: (dev, T, gctx.index), "cpu": (
+        torch.device("cpu"), cpu_ctx.targets, cpu_ctx.index)}
+    specs = (("data", None), (None, "data"), (None, "data"))
+
+    def strategies(key):
+        """The four strategies on 4 shards of ``key``'s device, each
+        result on the host with its seconds."""
+        d, Tw, index = where[key]
+        devs = [d] * SHARDS
+        mesh = make_mesh((SHARDS,), ("data",), devs)
+        mesh2 = make_mesh((2, 2), ("pod", "data"), devs)
+        ctx4 = EngineContext(Tw, index=index, block_size=gctx.block_size,
+                             device=d)
+        ctx4._mesh = mesh
+        U = torch.from_numpy(U64).to(d)
+        calls = {
+            "naive": lambda: sharded_naive_topk(
+                mesh, ("data", None), ("data",))(Tw, U, K),
+            "blocked": lambda: sharded_blocked_topk(mesh, specs, ("data",))(
+                Tw, *lists[key], U[:nb].contiguous(), K, SHARDED_BLOCK),
+            "hierarchical": lambda: hierarchical_merge_topk(
+                mesh2, (("pod", "data"), None), ("data",), ("pod",))(
+                Tw, U, K),
+            "norm": lambda: get_engine("norm_sharded").run(ctx4, U, K)}
+        out = {}
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            res = call()
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out[name] = (type(res)(*(x.cpu().numpy() for x in res[:4])),
+                         secs)
+        check(ctx4.layout("norm_sharded").n_shards == SHARDS,
+              "the norm_sharded context did not deal 4 shards")
+        return out
+
+    # -- the path, counted -----------------------------------------------------
+    torch.cuda.synchronize()
+    topk_mips.launches = gather_scores.launches = 0
+    gather_scores.path_launches = dict.fromkeys(gather_scores.path_launches,
+                                                0)
+    n_lat = len(srv.stats["norm_sharded"].lat_us_ring) \
+        if "norm_sharded" in srv.stats else 0
+    t0 = time.perf_counter()
+    one = srv.query(U64, K, method="norm_sharded")
+    one_s = time.perf_counter() - t0
+    card = strategies(dev.type)
+    torch.cuda.synchronize()
+    b4, b4_paths = gather_scores.launches, dict(gather_scores.path_launches)
+    b1 = topk_mips.launches
+    one_lat = list(srv.stats["norm_sharded"].lat_us_ring)[n_lat:]
+
+    # (a) one shard on the card: exact, and the single-host scan's counts
+    check(gctx.layout("norm_sharded").n_shards == torch.cuda.device_count(),
+          "the default mesh is not every visible card")
+    naive, norm = (type(results[LSH, m])(*(x[:BATCH] for x in
+                                           results[LSH, m][:4]))
+                   for m in ("naive", "norm"))
+    check(agrees_with(one, naive),
+          f"{LSH}: norm_sharded (default mesh) differs from naive")
+    for field in ("n_scored", "depth"):
+        check(np.array_equal(getattr(one, field), getattr(norm, field)),
+              f"{LSH}: norm_sharded {field} on the default mesh differs "
+              "from norm's on the same chunk")
+    print(f"sharded (a): {BATCH} {LSH} queries through norm_sharded on the "
+          f"default mesh ({torch.cuda.device_count()} shard): "
+          f"{np.mean(one_lat):.1f} us/query (host {1e6 * one_s / BATCH:.1f})"
+          f" against norm's {srv.stats['norm'].us_per_query:.1f}; exact, "
+          f"n_scored and depth equal to norm's (mean depth "
+          f"{one.depth.mean():.1f})", flush=True)
+
+    # (b) 4 logical shards on the card against the CPU mesh
+    t0 = time.perf_counter()
+    cpu = strategies("cpu")
+    cpu_s = time.perf_counter() - t0
+    for name, (res, secs) in card.items():
+        n = res.values.shape[0]
+        want = type(naive)(*(x[:n] for x in naive[:4]))
+        check(agrees_with(res, want),
+              f"{LSH}: sharded {name} (4 shards) differs from naive")
+        ref, ref_s = cpu[name]
+        check(agrees_with(res, ref),
+              f"{LSH}: sharded {name} on the card differs from the CPU mesh")
+        for field in ("n_scored", "depth"):
+            check(np.array_equal(getattr(res, field), getattr(ref, field)),
+                  f"{LSH}: sharded {name} {field} on the card "
+                  f"{getattr(res, field)[:4].tolist()} != on the CPU "
+                  f"{getattr(ref, field)[:4].tolist()}")
+        print(f"  sharded {name:>12s} x{SHARDS} on the card: {n} queries in "
+              f"{1e3 * secs:.1f} ms ({1e6 * secs / n:.1f} us/query; CPU "
+              f"mesh {ref_s:.2f} s), scored share "
+              f"{res.n_scored.mean() / M:.4%} of M, depth mean "
+              f"{res.depth.mean():.1f}; equal to the CPU mesh's", flush=True)
+    steps = int(card["blocked"][0].depth[0]) // SHARDED_BLOCK
+    check(b4 > 0 and b4 == steps,
+          f"the sharded blocked path launched gather_scores {b4} times in "
+          f"{steps} steps (one a step expected)")
+    check(b1 == 0, f"the sharded phase launched topk_mips {b1} times")
+    print(f"sharded path: gather_scores launches={b4} (by path {b4_paths}) "
+          f"in {steps} blocked steps; CPU mesh replay {cpu_s:.1f} s",
+          flush=True)
+
+    # (c) B4 at the blocked strategy's first step: every shard's lanes,
+    # at the path's queries and at a 64-query micro-batch
+    od = lists[dev.type][0]
+    stacked = od.reshape(R, SHARDS, ml).transpose(0, 1).reshape(SHARDS, -1)
+    base = (torch.arange(SHARDS, device=dev, dtype=torch.int32)
+            * ml)[:, None, None]
+
+    def first_step(nq):
+        """``(label, T, ids, U, timed)`` of the first step's B4 launch
+        for ``nq`` queries: ``[SHARDS * nq, R * block]`` ids."""
+        Ub = torch.from_numpy(U64[:nq]).to(dev)
+        cols = torch.arange(SHARDED_BLOCK, device=dev)
+        cols = torch.where((Ub < 0)[:, :, None], ml - 1 - cols, cols)
+        flat = (torch.arange(R, device=dev)[None, :, None] * ml
+                + cols).reshape(-1)
+        cand = stacked[:, flat].reshape(SHARDS, nq, -1)
+        ids = (cand + base).reshape(SHARDS * nq, -1).contiguous()
+        return (f"sharded bta first step, {nq} queries", T, ids,
+                Ub.repeat(SHARDS, 1).contiguous(), True)
+    cases = [first_step(nb), first_step(BATCH)]
+    rec = compare_gather(cases)[cases[0][0]]
+    print(f"sharded phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return b4_row("gather_scores[sharded bta]", rec, b4, rec["max_abs_err"])
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
@@ -2230,6 +2412,7 @@ def run(dev, kind: str) -> None:
     oracle_path(dev)
     stream_rows = streaming_path(servers, U_all, dev)
     lsm_rows = lsm_async_path(servers, U_all, dev)
+    sharded_row = sharded_path(servers, U_all, results, cpu_ctx, dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())
@@ -2259,6 +2442,7 @@ def run(dev, kind: str) -> None:
     kernels["kernels"].extend(recsys_rows)
     kernels["kernels"].extend(stream_rows)
     kernels["kernels"].extend(lsm_rows)
+    kernels["kernels"].append(sharded_row)
     for row in kernels["kernels"]:
         check(row["launches"] > 0,
               f"the main path launched {row['name']} 0 times")

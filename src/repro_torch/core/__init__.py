@@ -3,9 +3,10 @@
 The flat API mirrors the reference's ``repro.core``: every name of its
 ``__all__`` that the port has is re-exported here, from the port's own
 modules, so ``from repro_torch.core import build_index`` works as
-``from repro.core import build_index`` does. Names still to port, and the
-single-query scan stack the port replaced by its batched drivers, are
-listed in ``tests/test_torch_core_api.py``.
+``from repro.core import build_index`` does. The reference's names the
+port replaced (the single-query scan stack, by its batched drivers; the
+jax ``shard_map`` shim, by :func:`repro_torch.core.mesh.shard_array`)
+are listed in ``tests/test_torch_core_api.py``.
 """
 
 from repro_torch.core.blocked import (
@@ -34,6 +35,7 @@ from repro_torch.core.layout import (
     ListMajorLayout,
     NormMajorLayout,
     RowMajorLayout,
+    ShardedNormLayout,
     build_layout,
     layout_names,
 )
@@ -62,6 +64,9 @@ from repro_torch.core.seplr import (
     normalize_query,
     random_model,
 )
+from repro_torch.core.sharded import (hierarchical_merge_topk,
+                                      sharded_blocked_topk,
+                                      sharded_naive_topk, sharded_norm_topk)
 from repro_torch.core.strategies import rank_gather_first_keys
 from repro_torch.core.threshold import (TAStats, threshold_topk,
                                        threshold_topk_from_index,
@@ -84,9 +89,13 @@ __all__ = [
     "Engine", "EngineContext", "register_engine", "get_engine",
     "CostTable", "list_engines", "engine_names", "batch_bucket",
     "select_engine",
+    # sharded strategies (the mesh: repro_torch.core.mesh)
+    "sharded_naive_topk", "sharded_blocked_topk", "sharded_norm_topk",
+    "hierarchical_merge_topk",
     # layout subsystem
-    "RowMajorLayout", "NormMajorLayout", "ListMajorLayout", "build_layout",
-    "layout_names", "DEFAULT_PREFIX_DEPTH",
+    "RowMajorLayout", "NormMajorLayout", "ListMajorLayout",
+    "ShardedNormLayout", "build_layout", "layout_names",
+    "DEFAULT_PREFIX_DEPTH",
     # robustness layer
     "certificate_gaps", "certified_counts",
     # streaming tier and the LSM ladder

@@ -41,7 +41,7 @@ test is the same one-boolean host read per block.
 from __future__ import annotations
 
 import collections
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -416,6 +416,50 @@ def chunked_ta_topk_batched(
                               steps)
 
 
+class NormScanState(NamedTuple):
+    """The norm scan's per-lane state; any lead dimensions (``[B]`` for
+    the single-host scan, ``[S, B]`` for a device's shards)."""
+    top_vals: torch.Tensor   # [..., K] the carry, descending
+    top_ids: torch.Tensor    # [..., K] int32 norm-order rows
+    n_scored: torch.Tensor   # [...] int32 rows scored
+    depth: torch.Tensor      # [...] int32 blocks taken
+    upper: torch.Tensor      # [...] bound on every row not yet taken
+
+
+def norm_scan_init(lead: tuple, k: int, dtype, device) -> NormScanState:
+    """Empty carries, zero counts and an infinite bound."""
+    return NormScanState(
+        torch.full(lead + (k,), float("-inf"), dtype=dtype, device=device),
+        torch.full(lead + (k,), -1, dtype=torch.int32, device=device),
+        torch.zeros(lead, dtype=torch.int32, device=device),
+        torch.zeros(lead, dtype=torch.int32, device=device),
+        torch.full(lead, float("inf"), dtype=dtype, device=device))
+
+
+def norm_scan_step(st: NormScanState, scores, rows, valid, live, bound,
+                   k: int) -> NormScanState:
+    """One block of the norm scan for every ``live`` lane: fold the
+    tile's ``scores [..., B, block]`` (``valid [..., block]`` masks rows
+    re-read by a tail block that slid back, and pad rows; ``rows
+    [block]`` are their norm-order positions) into the carry, count the
+    valid rows and the block, and take ``bound`` (the norm bound after
+    the block) as the lane's upper bound. A lane that is not live keeps
+    its state. The single-host scan and the sharded scan
+    (:func:`repro_torch.core.sharded.sharded_norm_topk`) share it; each
+    keeps its own lower bound and loop."""
+    masked = torch.where(valid[..., None, :], scores, NEG_INF)
+    new_vals, new_ids = merge_block_into_carry_batched(
+        st.top_vals, st.top_ids, masked, rows, k)
+    fresh = valid.sum(-1, keepdim=True).to(torch.int32)
+    gate = live[..., None]
+    return NormScanState(
+        torch.where(gate, new_vals, st.top_vals),
+        torch.where(gate, new_ids, st.top_ids),
+        torch.where(live, st.n_scored + fresh, st.n_scored),
+        torch.where(live, st.depth + 1, st.depth),
+        torch.where(live, bound, st.upper))
+
+
 def norm_pruned_topk_batched(
     targets_by_norm: torch.Tensor,
     norm_order: torch.Tensor,
@@ -429,10 +473,11 @@ def norm_pruned_topk_batched(
     """Batched norm scan: ONE shared tile per step for the whole batch.
 
     Each step slices one contiguous tile of the norm-ordered catalogue and
-    scores the batch with one ``[B, R] @ [R, block]`` matmul. Per-query
-    liveness gates every state update, so each query's ``n_scored`` and
-    ``depth`` equal its own sequential scan's; the loop runs until the
-    slowest live query certifies (or ``max_blocks`` halts it).
+    scores the batch with one ``[B, R] @ [R, block]`` matmul
+    (:func:`norm_scan_step`). Per-query liveness gates every state update,
+    so each query's ``n_scored`` and ``depth`` equal its own sequential
+    scan's; the loop runs until the slowest live query certifies (or
+    ``max_blocks`` halts it).
 
     ``m_real`` is the real catalogue size when the norm arrays are padded
     to an M-bucket (pad rows zero, norm 0, id -1, sorted last): the tail
@@ -457,23 +502,17 @@ def norm_pruned_topk_batched(
     bound_norms = norms_sorted[next_starts]              # [n_steps]
     u_norms = torch.linalg.norm(U, dim=1)                # [B]
     offs = torch.arange(block_size, device=dev)
-    neg_inf = torch.tensor(float("-inf"), dtype=dt, device=dev)
 
-    top_vals = torch.full((B, k), float("-inf"), dtype=dt, device=dev)
-    top_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
-    n_scored = torch.zeros((B,), dtype=torch.int32, device=dev)
-    depth = torch.zeros((B,), dtype=torch.int32, device=dev)
+    st = norm_scan_init((B,), k, dt, dev)
     lower = torch.full((B,), float("-inf"), dtype=dt, device=dev)
-    upper = torch.full((B,), float("inf"), dtype=dt, device=dev)
-
     step = 0
     while step < cap:
         # block 0 is unconditionally live (lower = -inf < upper = +inf);
         # every later step tests the caps and the batch's liveness first
         if step > 0 and not (step < cap_eff
-                             and bool(torch.any(lower < upper))):
+                             and bool(torch.any(lower < st.upper))):
             break
-        live = lower < upper                             # [B]
+        live = lower < st.upper                          # [B]
         d0 = step * block_size
         start = max(0, min(d0, m - block_size))
         tile = targets_by_norm[start:start + block_size]  # [block, R]
@@ -481,29 +520,21 @@ def norm_pruned_topk_batched(
         rows = start + offs
         # the tail block slides back (mask re-read rows); pad rows masked
         valid = (rows >= d0) & (rows < m)
-        masked = torch.where(valid[None, :], scores, neg_inf)
-        new_vals, new_ids = merge_block_into_carry_batched(
-            top_vals, top_ids, masked, rows.to(torch.int32), k)
-        fresh = valid.sum().to(torch.int32)
-        gate = live[:, None]
-        top_vals = torch.where(gate, new_vals, top_vals)
-        top_ids = torch.where(gate, new_ids, top_ids)
-        n_scored = torch.where(live, n_scored + fresh, n_scored)
-        depth = torch.where(live, depth + 1, depth)
-        lower = torch.where(live, new_vals[:, k - 1], lower)
-        upper = torch.where(live, u_norms * bound_norms[step], upper)
+        st = norm_scan_step(st, scores, rows.to(torch.int32), valid, live,
+                            u_norms * bound_norms[step], k)
+        lower = torch.where(live, st.top_vals[:, k - 1], lower)
         step += 1
 
-    safe = torch.clamp(top_ids, 0, M - 1).long()
-    ids = torch.where(top_ids >= 0, norm_order[safe],
-                      torch.full_like(top_ids, -1))
+    safe = torch.clamp(st.top_ids, 0, M - 1).long()
+    ids = torch.where(st.top_ids >= 0, norm_order[safe],
+                      torch.full_like(st.top_ids, -1))
     # certificate tightening: a lane that consumed every REAL block has
     # nothing un-enumerated — vacuous -inf bound; only a budget halt keeps
     # the live block bound
     full_steps = _cdiv(m, block_size)
-    upper = torch.where(depth >= full_steps, neg_inf, upper)
-    return TopKResult(top_vals, ids.to(torch.int32), n_scored,
-                      depth * block_size, upper=upper)
+    upper = torch.where(st.depth >= full_steps, NEG_INF, st.upper)
+    return TopKResult(st.top_vals, ids.to(torch.int32), st.n_scored,
+                      st.depth * block_size, upper=upper)
 
 
 def norm_pruned_topk(

@@ -11,28 +11,32 @@ catalogue, per-engine arguments) shared across queries.
 
 Registered engines:
 
-=============  =====  ===========  ========  ===========  ====================
-name           exact  needs_index  backend   layout       algorithm
-=============  =====  ===========  ========  ===========  ====================
-``naive``      yes    no           torch     row_major    full matmul + top-k
-``ta``         yes    yes          torch     list_major   Threshold Algorithm
-                                                          (paper Alg. 2),
-                                                          chunked; tail scored
-                                                          by kernel B4
-``bta``        yes    yes          torch     list_major   Block Threshold
-                                                          Algorithm; tail
-                                                          scored by kernel B4
-``norm``       yes    yes          torch     norm_major   Cauchy-Schwarz scan
-``topk_mips``  yes    yes          cuda      norm_major   the scan as a CUDA
-                                                          kernel (two-level
-                                                          pre-screen)
-``fagin``      yes    yes          numpy     row_major    Fagin's Algorithm
-                                                          (paper Alg. 1; host
-                                                          oracle)
-``partial``    yes    yes          numpy     row_major    Partial TA (paper
-                                                          Alg. 3; host oracle)
-``auto``       yes    yes          dispatch  —            picks per batch
-=============  =====  ===========  ========  ===========  ====================
+================  =====  ===========  ========  ============  ====================
+name              exact  needs_index  backend   layout        algorithm
+================  =====  ===========  ========  ============  ====================
+``naive``         yes    no           torch     row_major     full matmul + top-k
+``ta``            yes    yes          torch     list_major    Threshold Algorithm
+                                                              (paper Alg. 2),
+                                                              chunked; tail scored
+                                                              by kernel B4
+``bta``           yes    yes          torch     list_major    Block Threshold
+                                                              Algorithm; tail
+                                                              scored by kernel B4
+``norm``          yes    yes          torch     norm_major    Cauchy-Schwarz scan
+``norm_sharded``  yes    yes          torch     norm_sharded  the norm scan per
+                                                              shard of a mesh,
+                                                              cross-shard
+                                                              tightening
+``topk_mips``     yes    yes          cuda      norm_major    the scan as a CUDA
+                                                              kernel (two-level
+                                                              pre-screen)
+``fagin``         yes    yes          numpy     row_major     Fagin's Algorithm
+                                                              (paper Alg. 1; host
+                                                              oracle)
+``partial``       yes    yes          numpy     row_major     Partial TA (paper
+                                                              Alg. 3; host oracle)
+``auto``          yes    yes          dispatch  —             picks per batch
+================  =====  ===========  ========  ============  ====================
 
 The two ``numpy`` rows are the paper's host oracles: item at a time,
 ``host_only``, one query after another (``supports_batch=False``); they
@@ -93,6 +97,8 @@ from repro_torch.core.layout import (DEFAULT_PREFIX_DEPTH,
                                      pad_zero_rows)
 from repro_torch.core.naive import TopKResult, naive_topk
 from repro_torch.core.partial import partial_threshold_topk_np
+from repro_torch.core.mesh import Mesh, make_mesh
+from repro_torch.core.sharded import sharded_norm_topk
 from repro_torch.core.strategies import sign_bucket, sign_bucket_label
 
 
@@ -287,6 +293,7 @@ class EngineContext:
         self._norm_decay: Optional[float] = None
         self._layouts: Dict[str, object] = {}
         self._engine_args: Dict[str, Any] = {}
+        self._mesh = None
 
     @property
     def num_targets(self) -> int:
@@ -345,16 +352,38 @@ class EngineContext:
         return self._norm_decay
 
     def layout(self, name: str):
-        """The named catalogue layout, built lazily and cached."""
+        """The named catalogue layout, built lazily and cached.
+
+        ``norm_sharded`` deals the norm order over :attr:`mesh`'s devices
+        (a 1-device mesh is valid: the sharded scan then degenerates to
+        the single-host one), with slabs sized for the M-bucket.
+        """
         lay = self._layouts.get(name)
         if lay is None:
             params = {"device": self.device}
             if name == "list_major":
                 params["prefix_depth"] = self.resolved_prefix_depth
+            elif name == "norm_sharded":
+                params.update(n_shards=self.mesh.size, mesh=self.mesh,
+                              m_total=self.m_bucket)
             index = None if name == "row_major" else self.index
             lay = build_layout(name, self.targets, index, **params)
             self._layouts[name] = lay
         return lay
+
+    @property
+    def mesh(self) -> Mesh:
+        """1-axis ``("data",)`` mesh over every visible device of the
+        context's device type (every CUDA device for a context on the
+        card, one ``cpu`` otherwise), built lazily. Replace ``_mesh``
+        before the first ``layout("norm_sharded")`` to shard otherwise
+        (``make_mesh((4,), ("data",), ["cpu"] * 4)``)."""
+        if self._mesh is None:
+            devs = ([torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())]
+                    if self.device.type == "cuda" else [self.device])
+            self._mesh = make_mesh((len(devs),), ("data",), devs)
+        return self._mesh
 
     @property
     def prepared_engines(self) -> List[str]:
@@ -395,7 +424,8 @@ class EngineContext:
             self.trace_counts[engine.name] = (
                 self.trace_counts.get(engine.name, 0) + delta)
         if U.shape[0] != b:
-            res = TopKResult(*(x[:b] for x in res))
+            # an engine without a certificate bound returns upper=None
+            res = TopKResult(*(None if x is None else x[:b] for x in res))
         return res
 
     def warmup(self, k: int, batch_sizes=(1, 8, 64),
@@ -713,6 +743,22 @@ def _norm_run(ctx, args, U, k, budget, bcfg):
         U, k, min(block_size, mb), max_blocks, m_real=args["m_real"])
 
 
+def _norm_sharded_args(ctx: EngineContext, bucket: int):
+    # the context's layout: slabs dealt over ctx.mesh for m_total =
+    # ctx.m_bucket, the only bucket engine_args asks for
+    lay = ctx.layout("norm_sharded")
+    return {"targets_sharded": lay.targets_sharded,
+            "norms_sharded": lay.norms_sharded,
+            "ids_sharded": lay.ids_sharded}
+
+
+def _norm_sharded_run(ctx, args, U, k, budget, bcfg):
+    # budget unsupported (supports_budget=False): Engine.run refuses one
+    scan = sharded_norm_topk(ctx.mesh, ("data",))
+    return scan(args["targets_sharded"], args["norms_sharded"],
+                args["ids_sharded"], U, k, ctx.block_size, ctx.max_blocks)
+
+
 def _topk_mips_args(ctx: EngineContext, bucket: int):
     return {"catalog": ctx.catalog}
 
@@ -963,6 +1009,12 @@ register_engine(Engine(
     exact=True, needs_index=True, supports_budget=True,
     backend="torch", layout="norm_major", traffic=_norm_traffic,
     description="Cauchy-Schwarz norm-ordered block scan"))
+register_engine(Engine(
+    name="norm_sharded", make_args=_norm_sharded_args,
+    run_args=_norm_sharded_run, exact=True, needs_index=True,
+    backend="torch", layout="norm_sharded", traffic=_norm_traffic,
+    description="shared-tile norm scan per shard of a device mesh, with "
+                "cross-shard threshold tightening (row-sharded catalogue)"))
 register_engine(Engine(
     name="topk_mips", make_args=_topk_mips_args, run_args=_topk_mips_run,
     exact=True, needs_index=True, backend="cuda", layout="norm_major",

@@ -2,7 +2,7 @@
 
 Every engine declares the layout it consumes (``Engine.layout``) and
 :class:`repro_torch.core.engines.EngineContext` builds and caches it
-lazily. This slice carries the three single-host layouts:
+lazily. Three single-host layouts and one sharded layout:
 
 ``row_major``
     The catalogue as given — the naive engine's layout.
@@ -20,10 +20,21 @@ lazily. This slice carries the three single-host layouts:
     the prefix a Block Threshold Algorithm step reads contiguous tiles;
     past it the scan gathers rows and ranks of its candidates.
 
+``norm_sharded``
+    The norm-major layout dealt round-robin over ``n_shards`` shards
+    (global norm rank i lives on shard ``i % n`` at local position
+    ``i // n``), so every shard's local norm spectrum mirrors the global
+    one. Consumed by the ``norm_sharded`` engine
+    (:func:`repro_torch.core.sharded.sharded_norm_topk`).
+
 Pad-row convention for arrays padded to an M-bucket: pad TARGET rows are
 zero, pad NORM entries are ``0`` and pad ids ``-1``, so pads sort last
 and the real norm-order prefix is untouched. The list engines run on the
-real M: nothing of ``list_major`` is padded.
+real M: nothing of ``list_major`` is padded. ``norm_sharded`` pads the
+global item count to ``m_total`` (the M-bucket, from the engine) before
+the deal: unlike the list engines' padding, this one sets each slab's
+length, and so the block and the bound at a slab's last real block, and
+with them the counts.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.index import to_host
+from repro_torch.core.mesh import shard_array
 
 #: Default list-prefix depth (rows per dimension), the reference's
 #: calibration on its benchmark catalogues. Deeper scans continue in the
@@ -141,6 +153,27 @@ class ListMajorLayout:
         return dataclasses.replace(self, **drop)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedNormLayout:
+    """Round-robin-dealt norm-major layout.
+
+    The arrays are shard-major: rows ``[s*m_local, (s+1)*m_local)`` are
+    shard s's slab, itself in decreasing-norm order (a strided deal of the
+    global norm order). Slabs are padded to equal length with zero rows of
+    norm 0 and id -1, a suffix of each slab. Built with a mesh, each
+    field is a :class:`repro_torch.core.mesh.ShardedArray` whose slabs
+    lie on their shards' devices (``np.asarray`` gives the whole array);
+    without one, a tensor.
+    """
+
+    targets_sharded: object  # [n*m_local, R]
+    norms_sharded: object    # [n*m_local]
+    ids_sharded: object      # [n*m_local] int32; -1 marks padding
+    n_shards: int
+
+    name = "norm_sharded"
+
+
 def pad_zero_rows(arr: torch.Tensor, m_bucket: int) -> torch.Tensor:
     """Pad a catalogue-shaped tensor (leading axis M) to ``m_bucket`` rows
     of zeros; no-op when already at the bucket."""
@@ -209,6 +242,50 @@ def build_list_major(targets, index, prefix_depth: Optional[int] = None,
         rank_by_item=rank_by_item, prefix_depth=P)
 
 
+def build_norm_sharded(targets, index, n_shards: int, mesh=None,
+                       axis_name: str = "data",
+                       m_total: Optional[int] = None, device=None,
+                       **_) -> ShardedNormLayout:
+    """Deal the norm order round-robin over ``n_shards`` equal slabs of
+    ``ceil(max(M, m_total) / n_shards)`` rows: global norm rank i goes to
+    shard ``i % n`` at position ``i // n`` (:func:`round_robin_shares`'
+    deal), the rest of each slab padding. The deal runs on the index's
+    device (else ``device``). With ``mesh``, each slab is placed on its
+    shard's device along ``axis_name``
+    (:func:`repro_torch.core.mesh.shard_array`)."""
+    if index is not None:
+        order = index.norm_order
+        norms = index.norms_sorted
+        T = torch.as_tensor(targets, dtype=torch.float32, device=order.device)
+    else:
+        T = torch.as_tensor(targets, dtype=torch.float32,
+                            device=resolve_device(device))
+        n = torch.linalg.norm(T, dim=1)
+        order = torch.from_numpy(np.argsort(-to_host(n), kind="stable")
+                                 .astype(np.int32)).to(T.device)
+        norms = n[order.long()]
+    M, R = T.shape
+    m_local = -(-max(M, m_total or M) // n_shards)
+    pad = n_shards * m_local - M
+    # padded rank j sits at [j // n, j % n]: the transpose is shard-major
+    ids = torch.cat([order.to(torch.int32), order.new_full((pad,), -1,
+                                                            dtype=torch.int32)])
+    ids = ids.reshape(m_local, n_shards).T.reshape(-1).contiguous()
+    norms_sh = torch.cat([norms, norms.new_zeros(pad)]).reshape(
+        m_local, n_shards).T.reshape(-1).contiguous()
+    real = ids >= 0
+    T_sh = torch.where(real[:, None], T[torch.clamp(ids, min=0).long()],
+                       torch.zeros((), dtype=T.dtype, device=T.device))
+    arrays = (T_sh, norms_sh, ids)
+    if mesh is not None:
+        arrays = (shard_array(T_sh, mesh, (axis_name, None)),
+                  shard_array(norms_sh, mesh, (axis_name,)),
+                  shard_array(ids, mesh, (axis_name,)))
+    return ShardedNormLayout(targets_sharded=arrays[0],
+                             norms_sharded=arrays[1],
+                             ids_sharded=arrays[2], n_shards=n_shards)
+
+
 def round_robin_shares(n: int, n_shards: int, start: int = 0) -> np.ndarray:
     """Rows each shard receives when ``n`` items are dealt round-robin
     starting at cursor position ``start`` — the strided deal of the
@@ -226,6 +303,7 @@ _BUILDERS = {
     "row_major": build_row_major,
     "norm_major": build_norm_major,
     "list_major": build_list_major,
+    "norm_sharded": build_norm_sharded,
 }
 
 

@@ -6,7 +6,7 @@ batched queries through the selected engine on ``--device`` (default
 ``cuda``), printing the paper's efficiency metric (scores/query) next to
 wall time. ``--engine all`` sweeps every exact engine of the registry
 but ``auto`` and the host oracles (``naive``, ``ta``, ``bta``, ``norm``,
-``topk_mips``) and asserts that each agrees with ``naive``; any registry
+``norm_sharded``, ``topk_mips``) and asserts that each agrees with ``naive``; any registry
 name or alias is accepted (``--engine ta`` or ``threshold`` serves the
 paper's Threshold Algorithm, ``--engine fagin`` or ``partial`` a host
 oracle, slowly). ``--engine auto`` warms the engines ``auto`` can pick

@@ -5,6 +5,7 @@
 batched queries through any engine of the registry, addressed by name
 (``bta`` — the default, alias ``blocked`` — ``ta``, the paper's
 Threshold Algorithm, alias ``threshold``, ``naive``, ``norm``,
+``norm_sharded`` — the norm scan over the context's device mesh —
 ``topk_mips``, alias ``pallas``, the host oracles ``fagin`` and
 ``partial``, and ``auto``, which picks an engine per chunk with
 :func:`repro_torch.core.engines.select_engine`). Requests are chunked by

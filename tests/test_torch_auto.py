@@ -260,7 +260,7 @@ def test_warmup_skips_dispatch_engines_and_refuses_them_by_name():
     ct = CostTable()
     ctx.warmup(2, batch_sizes=(1,), cost_table=ct)
     assert {key.split("|")[0] for key in ct.snapshot()} == {
-        "bta", "naive", "norm", "ta", "topk_mips"}
+        "bta", "naive", "norm", "norm_sharded", "ta", "topk_mips"}
     for name in ("auto", "fagin", "partial"):
         assert not get_engine(name).has_executable
         with pytest.raises(ValueError, match="dispatch-only"):
@@ -351,7 +351,8 @@ def test_serve_cli_skips_the_host_oracles_and_warms_auto(engine):
     warmed = next(line for line in out.splitlines()
                   if line.startswith("warmed:")).split()[1:]
     if engine == "all":
-        assert warmed == ["naive", "bta", "norm", "ta", "topk_mips"]
+        assert warmed == ["naive", "bta", "norm", "norm_sharded", "ta",
+                          "topk_mips"]
         for name in warmed:
             assert f"{name}:" in out
     else:

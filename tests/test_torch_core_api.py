@@ -3,10 +3,11 @@
 
 Every name the reference exports either imports from ``repro_torch.core``
 or stands in one of two lists below: ``NOT_YET_PORTED`` (later slices,
-keyed to their ``ROADMAP.md`` queue A item) or ``REPLACED`` (the
-single-query scan stack, which the port replaced by its batched drivers:
-one query is the batch of one). A listed name that the port does export
-fails the test, so the lists shrink as slices land."""
+keyed to their ``ROADMAP.md`` queue A item; empty since the sharding
+slice) or ``REPLACED`` (the single-query scan stack, which the port
+replaced by its batched drivers: one query is the batch of one; and the
+jax ``shard_map`` shim, replaced by the port's own deal over a mesh). A
+listed name that the port does export fails the test."""
 
 import importlib
 
@@ -15,12 +16,7 @@ import pytest
 import repro.core as ref_core
 import repro_torch.core as core
 
-NOT_YET_PORTED = {
-    # A5: sharding
-    "sharded_naive_topk": "A5", "sharded_blocked_topk": "A5",
-    "sharded_norm_topk": "A5", "hierarchical_merge_topk": "A5",
-    "compat_shard_map": "A5", "ShardedNormLayout": "A5",
-}
+NOT_YET_PORTED = {}
 
 # reference name -> the port's counterpart, "module:name"
 REPLACED = {
@@ -34,6 +30,8 @@ REPLACED = {
         "repro_torch.core.strategies:batched_list_prefix_strategy",
     "norm_block_strategy":
         "repro_torch.core.blocked:norm_pruned_topk_batched",
+    # the jax shard_map shim: the port deals arrays over its own mesh
+    "compat_shard_map": "repro_torch.core.mesh:shard_array",
 }
 
 
@@ -75,7 +73,8 @@ def test_exported_name_is_its_defining_modules_object(name):
         # a constant: find the port module that defines it
         owners = [m for m in ("blocked", "driver", "engines", "index",
                               "layout", "lsm", "naive", "segments",
-                              "seplr", "strategies", "threshold")
+                              "seplr", "sharded", "strategies",
+                              "threshold")
                   if name in vars(importlib.import_module(
                       f"repro_torch.core.{m}"))]
         assert owners, f"{name} is defined in no port core module"

@@ -112,9 +112,9 @@ def test_merge_topk_sorted_carry_wins_ties():
 
 def test_registry_names_and_aliases():
     assert engine_names() == ["auto", "bta", "fagin", "naive", "norm",
-                              "partial", "ta", "topk_mips"]
+                              "norm_sharded", "partial", "ta", "topk_mips"]
     assert [e.name for e in list_engines() if e.has_executable] == [
-        "bta", "naive", "norm", "ta", "topk_mips"]
+        "bta", "naive", "norm", "norm_sharded", "ta", "topk_mips"]
     assert get_engine("pallas").name == "topk_mips"
     assert get_engine("threshold").name == "ta"
     assert get_engine("ta").layout == "list_major"
@@ -127,10 +127,12 @@ def test_registry_names_and_aliases():
         "auto", "bta", "naive", "norm", "ta"}
     assert [e.name for e in list_engines(backend="numpy")] == [
         "fagin", "partial"]
+    assert get_engine("norm_sharded").layout == "norm_sharded"
     with pytest.raises(ValueError, match=r"registered: \['auto', 'bta', "
                                          r"'fagin', 'naive', 'norm', "
-                                         r"'partial', 'ta', 'topk_mips'\]"):
-        get_engine("norm_sharded")
+                                         r"'norm_sharded', 'partial', 'ta', "
+                                         r"'topk_mips'\]"):
+        get_engine("norm_shard")
 
 
 def test_engines_run_on_a_carried_index():
@@ -198,8 +200,12 @@ def test_server_alias_and_budget_match_reference(servers):
 
 def test_server_validation_and_later_slices(servers):
     _, srv, U = servers
-    with pytest.raises(ValueError, match="unknown engine 'norm_sharded'"):
-        srv.query(U, 5, method="norm_sharded")   # a later slice
+    # the sharded norm scan (a 1-device mesh here) serves by name
+    np.testing.assert_array_equal(
+        srv.query(U[:8], 5, method="norm_sharded").values,
+        srv.query(U[:8], 5, method="norm").values)
+    with pytest.raises(ValueError, match="unknown engine 'norm_shard'"):
+        srv.query(U, 5, method="norm_shard")
     with pytest.raises(ValueError, match="k must be"):
         srv.query(U, 0, method="naive")
     with pytest.raises(ValueError, match="budget must be"):
@@ -236,9 +242,10 @@ def test_warmup_primes_cost_table_and_counts_no_cpu_launches(tmp_path):
     before = topk_mips.launches
     srv.warmup(5, batch_sizes=(1, 8))
     assert srv.available_engines() == ["auto", "bta", "fagin", "naive",
-                                       "norm", "partial", "ta", "topk_mips"]
+                                       "norm", "norm_sharded", "partial",
+                                       "ta", "topk_mips"]
     # the default warmup primes every executable engine, and only them
-    warmed = ["bta", "naive", "norm", "ta", "topk_mips"]
+    warmed = ["bta", "naive", "norm", "norm_sharded", "ta", "topk_mips"]
     for name in warmed:
         assert srv.cost_table.predict(name, 8, "", granular_only=True) > 0
     assert {key.split("|")[0] for key in srv.cost_table.snapshot()} == set(

@@ -137,14 +137,18 @@ def test_from_reference_carries_model_and_index_state():
 def test_layouts_reuse_the_index_norm_order():
     T = _catalogue("tied")
     idx = build_index(torch.from_numpy(T), device="cpu")
-    assert layout_names() == ["list_major", "norm_major", "row_major"]
+    assert layout_names() == ["list_major", "norm_major", "norm_sharded",
+                              "row_major"]
     with_index = build_layout("norm_major", T, idx)
     without = build_layout("norm_major", T, device="cpu")
     for f in ("norm_order", "norms_sorted", "targets_by_norm"):
         np.testing.assert_array_equal(host(getattr(with_index, f)),
                                       host(getattr(without, f)))
+    dealt = build_layout("norm_sharded", T, idx, n_shards=1)
+    np.testing.assert_array_equal(host(dealt.ids_sharded),
+                                  host(with_index.norm_order))
     with pytest.raises(ValueError, match="unknown layout"):
-        build_layout("norm_sharded", T, idx)
+        build_layout("norm_shard", T, idx)
 
 
 def test_entry_points_default_to_the_card():

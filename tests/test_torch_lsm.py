@@ -9,8 +9,9 @@ agreeing, here a seeded sweep) and the four LSM cases of
 ``tests/test_faults.py`` run through both packages in lockstep
 (:class:`_torch_streaming_pair.Pair` with ``n_shards``): every query's
 values, ids, ``n_scored``, ``depth`` and ``QueryInfo`` and every counted
-statistic equal the reference's. ``test_norm_sharded_engine_on_ladder_is_
-exact`` needs the ``norm_sharded`` engine (ROADMAP A5) and waits for it.
+statistic equal the reference's. The reference's
+``test_norm_sharded_engine_on_ladder_is_exact`` is ported with the
+``norm_sharded`` engine, in ``test_torch_sharded.py``.
 """
 
 import jax.numpy as jnp
