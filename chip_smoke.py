@@ -58,7 +58,8 @@ checkout. In order, it
    halted depth passes the budget; holds ``gather_scores`` against its
    plain version at ``ta``'s first LSHTC-like tail block (64 x 3,200 ids),
    timed as in 4; prints ``ta``'s latency and scored share beside
-   ``bta``'s and profiles one whole ``ta`` chunk (device activity only);
+   ``bta``'s and profiles the first 8,192 rounds of a ``ta`` chunk
+   (halted by a budget; device activity only);
 8. the recsys serving path at DeepFM's full published width (39 fields,
    embed 10, 1,000,000 ids a field, MLP 400-400-400; random weights from
    a seeded generator on the card): holds ``embedding_bag`` (kernel B5;
@@ -170,7 +171,30 @@ checkout. In order, it
     in 4: a row of the kernels line; and, timed too, at the first step a
     64-query micro-batch would give it (256 lanes). It prints the
     phase's seconds;
-15. prints one ``{"kernels": [...]}`` line and, last, the device line
+15. the dense LM serving path at gemma-2b's full width and depth (18
+    layers, d_model 2,048, MQA 8/1 at head_dim 256, GeGLU d_ff 16,384,
+    vocab 256,000; 3,030,460,416 random parameters drawn on the card from
+    SEED, the layer stack cast to bf16 once by ``serving_params``), with
+    every kernel count set to 0 just before and read just after (each
+    must stay 0: no TPU kernel is on this path): 16 prompts of 1,024
+    tokens from ``lm_batches(SEED)`` through ``prefill`` (timed twice),
+    then 32 greedy ``serve_step(top_k=8)`` steps, each timed on the host
+    clock to a synchronize. It checks that every value is finite and
+    every id in ``[0, 256000)``; that the last step's ``(values, ids)``
+    agree with a witness that shares no code with the head, float64
+    logits of its hidden state (``decode_hidden`` at the same position)
+    and ``torch.topk``, within the fp32 product's rounding and id for id
+    at every rank that rounding cannot reorder; that the decode path's
+    last hidden state agrees with ``forward`` over the same 1,056 tokens
+    within ``LM_TOL`` (bf16), and at fp32 on 4 prompts cut to 256 tokens
+    and 4 steps; and that a 2-layer cut, drawn once on the CPU and
+    copied to the card, gives the same ``prefill`` and ``serve_step``
+    results (hidden state, caches, top-K values and clear ids) on the
+    card as on the CPU at fp32 and bf16. It prints the prefill's ms, the
+    decode step's median ms and tokens/s beside its byte bound, peak
+    memory and the phase's seconds, with the card's name and power
+    limit;
+16. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -215,6 +239,9 @@ N_CPU_CHECK = 4
 # the ta phase's halted batch: a budget in rounds past the 2,048-round
 # list prefix that stops inside a 32-round chunk
 TA_BUDGET = 4100
+# the profiled ta chunk stops at this many rounds (a whole chunk's trace
+# took about a minute to post-process)
+TA_PROFILE_ROUNDS = 8192
 # the ta phase's exact LSHTC-like run: one 64-query chunk of the 256
 # queries (each chunk costs seconds of host-bound steps)
 TA_LSH_QUERIES = 64
@@ -273,9 +300,30 @@ LSM_B1_BATCH, LSM_B1_K = 8, 42
 SHARDS = 4
 SHARDED_BLOCKED_QUERIES = 16
 SHARDED_BLOCK = 512
-# H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores)
+# The LM serving phase: gemma-2b at full width and depth, random weights
+# drawn on the card from SEED; 16 prompts of 1,024 tokens from lm_batches,
+# then 32 greedy decode steps through the exact top-8 head. Its fp32 check
+# of the decode path against forward takes 4 of the prompts cut to 256
+# tokens and 4 steps; its CPU check a 2-layer cut, 2 prompts of 64 tokens
+# and 2 steps.
+LM_ARCH, LM_PARAMS = "gemma-2b", 3_030_460_416
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_TOP_K = 16, 1024, 32, 8
+LM_FP32_BATCH, LM_FP32_PROMPT, LM_FP32_STEPS = 4, 256, 4
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 64, 2
+# LM tolerances, for hidden states and KV caches normwise (||got - want|| /
+# ||want||), for top-K values elementwise against the largest |want|, and
+# ids compared at the slots whose logit stands clear of its neighbours by
+# more than the values' tolerance. fp32 runs differ in summation order only
+# (decode path against forward at depth 18, on the CPU: 8.8e-6); bf16 runs
+# round at other points along the layers (the same, in bf16: 1.8-1.9%;
+# an attention mask one position short gives 4.7%, a RoPE position off by
+# one 11%, which the fp32 check catches at any depth).
+LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores;
+# dense bf16 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def catalogues():
@@ -576,8 +624,8 @@ def profile_call(label: str, fn, kernels: dict, cpu: bool = True) -> None:
         print("  profile: the profiler recorded no device time", flush=True)
         return
     print(f"  profile of {label}: wall {wall_us:.0f} us, "
-          f"device busy {busy_us:.0f} us ({busy_us / wall_us:.1%})",
-          flush=True)
+          f"device busy {busy_us:.0f} us ({busy_us / wall_us:.1%}) in "
+          f"{sum(e.count for e in events)} kernel launches", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total:10.0f} us {e.count:6d} x "
               f"{e.key[:90]}", flush=True)
@@ -1090,10 +1138,11 @@ def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
           f"depth <= their bta depth: {np.mean(depth <= bta_depth):.2%} "
           f"(ta depth mean {depth.mean():.1f}, bta {bta_depth.mean():.1f})",
           flush=True)
-    profile_call(f"one {BATCH}-query {lsh} ta chunk (device activity "
-                 f"only)",
+    profile_call(f"the first {TA_PROFILE_ROUNDS} rounds of one "
+                 f"{BATCH}-query {lsh} ta chunk (device activity only)",
                  lambda: servers[lsh].query(U_all[lsh][:BATCH], K,
-                                            method="ta"),
+                                            method="ta",
+                                            budget=TA_PROFILE_ROUNDS),
                  {"B4 gather_scores_*_kernel": "gather_scores_"}, cpu=False)
 
     # kernel B4 at ta's first LSHTC-like tail block, after the counted run
@@ -1977,6 +2026,284 @@ def oracle_path(dev) -> None:
           + "; partial's n_scored equals ta's query for query", flush=True)
 
 
+def normwise(got, want) -> float:
+    """``||got - want|| / ||want||`` in fp32 over any shapes and devices."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def lm_topk_agree(got, want, dtype: str, k: int) -> bool:
+    """Top-(k+1) ``(values, ids)`` of two runs: the first k values within
+    ``LM_TOL`` of the largest, ids equal where ``want``'s logit stands clear
+    of its neighbours (the (k+1)-th one included) by more than that."""
+    gv, gi = (t.cpu() for t in got)
+    wv, wi = (t.cpu() for t in want)
+    tol = LM_TOL[dtype] * float(wv.abs().max())
+    if float((gv[:, :k] - wv[:, :k]).abs().max()) > tol:
+        return False
+    gaps = (wv[:, 1:] - wv[:, :-1]).abs()                    # [B, k]
+    before = gaps.new_full(gaps.shape, float("inf"))
+    before[:, 1:] = gaps[:, :-1]
+    clear = (gaps > tol) & (before > tol)
+    return bool((gi[:, :k][clear] == wi[:, :k][clear]).all())
+
+
+def lm_head_witness(hidden, unembed, vals, ids) -> int:
+    """Holds a top-K head's ``(vals, ids)`` against a witness that shares
+    no code with it: float64 logits ``hidden @ unembed`` and ``torch.topk``.
+    ``rnd``, row by row, bounds the rounding of the head's fp32 product
+    (``D * 2**-24 * max_v |hidden| @ |unembed|``). Each value must lie
+    within ``rnd`` of its id's float64 logit, each id's logit within
+    ``2 * rnd`` of the witness's at its rank, and the ids must equal the
+    witness's wherever the rank's logit stands clear of both neighbours
+    (the (K+1)-th one included) by more than ``2 * rnd``, where rounding
+    cannot reorder them. Returns the number of ranks compared id for id;
+    raises on a disagreement."""
+    import torch
+    K = ids.shape[1]
+    h, U = hidden.double(), unembed.double()
+    logits = h @ U
+    rnd = h.shape[-1] * 2.0 ** -24 * (h.abs() @ U.abs()).amax(
+        dim=-1, keepdim=True)
+    del U
+    wv, wi = torch.topk(logits, K + 1, dim=-1)
+    got = logits.gather(1, ids.long())
+    check(bool(((vals.double() - got).abs() <= rnd).all()),
+          "head values differ from their ids' float64 logits by more than "
+          "the fp32 rounding")
+    check(bool(((got - wv[:, :K]).abs() <= 2 * rnd).all()),
+          "a head id's float64 logit is not the witness's at its rank")
+    gaps = wv[:, :-1] - wv[:, 1:]                            # [B, K]
+    before = torch.full_like(gaps, float("inf"))
+    before[:, 1:] = gaps[:, :-1]
+    clear = (gaps > 2 * rnd) & (before > 2 * rnd)
+    check(bool((ids.long()[clear] == wi[:, :K][clear]).all()),
+          "head ids differ from torch.topk of the float64 logits")
+    return int(clear.sum())
+
+
+def lm_decode(params, cfg, prompt, steps: int, top_k: int, timed=None):
+    """``prefill`` then ``steps`` greedy ``serve_step``s from the top-K
+    head. Returns ``(cache, fed tokens, [(values, ids)] of the prefill head
+    and each step)``; with ``timed`` a list, appends each step's host ms
+    (after a synchronize)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    B, P = prompt.shape
+    dt = cfg.compute_dtype
+    h, pre = tf.prefill(params, prompt, cfg, cache_dtype=dt)
+    cache = tf.init_kv_cache(cfg, B, P + steps, dtype=dt,
+                             device=prompt.device)
+    for key in ("k", "v"):
+        cache[key][:, :, :P] = pre[key]
+    del pre
+    outs = [tf.topk_logits(h, params["unembed"], top_k)]
+    fed = []
+    for step in range(steps):
+        fed.append(outs[-1][1][:, :1])
+        if timed is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out, cache = tf.serve_step(params, cache, fed[-1], P + step, cfg,
+                                   top_k=top_k)
+        if timed is not None:
+            torch.cuda.synchronize()
+            timed.append(1e3 * (time.perf_counter() - t0))
+        outs.append(out)
+    return cache, fed, outs
+
+
+def lm_path(dev) -> None:
+    """The dense LM serving phase: gemma-2b at full width and depth."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.fm_interaction import fm_interaction
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import count_params
+
+    t_phase = time.perf_counter()
+    gpu = gpu_name_and_power()
+    cfg = get_arch(LM_ARCH).make_config()
+    check(cfg.param_count() == LM_PARAMS,
+          f"{LM_ARCH}: param_count {cfg.param_count()} != {LM_PARAMS}")
+    B, P, T, K, V = LM_BATCH, LM_PROMPT, LM_STEPS, LM_TOP_K, cfg.vocab_size
+    prompt = torch.from_numpy(
+        next(lm_batches(SEED, V, B, P))["tokens"]).to(dev)
+    counters = (topk_mips, gather_scores, embedding_bag, fm_interaction)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+
+    # -- the weights, drawn on the card; the layer stack cast to bf16 once ---
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    served = tf.serving_params(params, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(count_params(params) == LM_PARAMS,
+          f"{LM_ARCH}: {count_params(params)} parameters drawn")
+
+    # -- prefill, timed twice (the first call sets up cuBLAS) ----------------
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.prefill(served, prompt, cfg)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # -- the served path: prefill, then T greedy top-K decode steps ----------
+    step_ms = []
+    cache, fed, outs = lm_decode(served, cfg, prompt, T, K, timed=step_ms)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    check(not any(launches.values()),
+          f"the LM path launched a kernel {launches}: its head is the "
+          "plain fp32 product and stable top-K, as the reference's")
+    for vals, ids in outs:
+        check(vals.shape == (B, K) and bool(torch.isfinite(vals).all())
+              and bool((vals[:, :-1] >= vals[:, 1:]).all()),
+              f"{LM_ARCH}: top-{K} values not finite and descending")
+        check(ids.dtype == torch.int32 and bool(((ids >= 0) & (ids < V))
+                                                .all()),
+              f"{LM_ARCH}: top-{K} ids outside [0, {V})")
+
+    # the last step's hidden state, for the head's witness below (the step
+    # rerun: it writes the same cache row)
+    h_last = tf.decode_hidden(served, cache, fed[-1], P + T - 1, cfg)
+    check(bool(torch.isfinite(h_last.float()).all()),
+          f"{LM_ARCH}: the decode path's hidden state is not finite")
+
+    # where a step's time goes: the last step again (it rewrites the same
+    # cache row)
+    profile_call(f"one {LM_ARCH} decode step", lambda: tf.serve_step(
+        served, cache, fed[-1], P + T - 1, cfg, top_k=K), {})
+
+    # the decode path's last hidden state against forward over the tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_fwd = tf.forward(served, torch.cat([prompt] + fed, dim=1), cfg)[0]
+    torch.cuda.synchronize()
+    forward_ms = 1e3 * (time.perf_counter() - t0)
+    bf16_err = normwise(h_last, h_fwd[:, -1])
+    check(bf16_err <= LM_TOL["bfloat16"],
+          f"{LM_ARCH}: decode path vs forward, bf16: {bf16_err:.3g} > "
+          f"{LM_TOL['bfloat16']}")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # (after the peak is read: the witness holds a float64 unembed)
+    head_ranks = lm_head_witness(h_last, served["unembed"], *outs[-1])
+    check(head_ranks > 0, f"{LM_ARCH}: no rank of the head stood clear")
+    del served, cache, h_fwd
+
+    # the same at fp32 (the fp32 parameters as drawn), shorter
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    prompt32 = prompt[:LM_FP32_BATCH, :LM_FP32_PROMPT]
+    cache, fed, _ = lm_decode(params, cfg32, prompt32, LM_FP32_STEPS, K)
+    h_last = tf.decode_hidden(params, cache, fed[-1],
+                              prompt32.shape[1] + LM_FP32_STEPS - 1, cfg32)
+    h_fwd = tf.forward(params, torch.cat([prompt32] + fed, dim=1), cfg32)[0]
+    fp32_err = normwise(h_last, h_fwd[:, -1])
+    check(fp32_err <= LM_TOL["float32"],
+          f"{LM_ARCH}: decode path vs forward, fp32: {fp32_err:.3g} > "
+          f"{LM_TOL['float32']}")
+    del params, cache, h_fwd
+    torch.cuda.empty_cache()
+
+    # -- a 2-layer cut across the card and the CPU ---------------------------
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    on_cpu = tf.init_params(cfg2, torch.Generator().manual_seed(SEED), "cpu")
+    on_card = tree_to(on_cpu, dev)
+    cut = prompt[:LM_CPU_BATCH, :LM_CPU_PROMPT]
+    cross = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg2, compute_dtype=getattr(torch, dtype))
+        card, cpu = (tf.serving_params(p, c) for p in (on_card, on_cpu))
+        h_card, pre_card = tf.prefill(card, cut, c, cache_dtype=c.compute_dtype)
+        h_cpu, pre_cpu = tf.prefill(cpu, cut.cpu(), c,
+                                    cache_dtype=c.compute_dtype)
+        errs = [normwise(h_card, h_cpu)] + [
+            normwise(pre_card[key], pre_cpu[key]) for key in ("k", "v")]
+        caches = []
+        for p, h, pre, dv in ((card, h_card, pre_card, dev),
+                              (cpu, h_cpu, pre_cpu, "cpu")):
+            cache = tf.init_kv_cache(c, LM_CPU_BATCH,
+                                     LM_CPU_PROMPT + LM_CPU_STEPS,
+                                     dtype=c.compute_dtype, device=dv)
+            for key in ("k", "v"):
+                cache[key][:, :, :LM_CPU_PROMPT] = pre[key]
+            caches.append(cache)
+        tok = tf.topk_logits(h_card, card["unembed"], K)[1][:, :1]
+        for step in range(LM_CPU_STEPS):
+            pos = LM_CPU_PROMPT + step
+            got, caches[0] = tf.serve_step(card, caches[0], tok, pos, c,
+                                           top_k=K + 1)
+            want, caches[1] = tf.serve_step(cpu, caches[1], tok.cpu(), pos,
+                                            c, top_k=K + 1)
+            check(lm_topk_agree(got, want, dtype, K),
+                  f"{LM_ARCH} x{LM_CPU_LAYERS}, {dtype}: serve_step step "
+                  f"{step} on the card differs from the CPU")
+            tok = got[1][:, :1]
+        errs += [normwise(caches[0][key], caches[1][key])
+                 for key in ("k", "v")]
+        cross[dtype] = max(errs)
+        check(cross[dtype] <= LM_TOL[dtype],
+              f"{LM_ARCH} x{LM_CPU_LAYERS}, {dtype}: card vs CPU "
+              f"{errs} > {LM_TOL[dtype]}")
+    cross_s = time.perf_counter() - t0
+    del on_card, on_cpu
+
+    # -- the numbers ----------------------------------------------------------
+    L, D = cfg.n_layers, cfg.d_model
+    proj = sum(cfg.n_layers * n for n in (
+        D * cfg.q_dim, 2 * D * cfg.kv_dim, cfg.q_dim * D, 3 * D * cfg.d_ff))
+    cache_bytes = 2 * L * B * (P + T) * cfg.kv_dim * 2
+    step_bytes = 2 * proj + 4 * (2 * L * D + D) + 4 * D * V + cache_bytes \
+        + 4 * B * D
+    step_ops_ms = 1e3 * (2 * B * proj / BF16_FLOPS_PER_S
+                         + 2 * B * D * V / FP32_FLOPS_PER_S)
+    step_bound = max(1e3 * step_bytes / HBM_BYTES_PER_S, step_ops_ms)
+    n_blk = -(-P // cfg.kv_block) * cfg.kv_block
+    prefill_ops = 2 * B * P * proj + 4 * L * B * cfg.n_heads * P * n_blk \
+        * cfg.head_dim
+    prefill_bound = max(1e3 * prefill_ops / BF16_FLOPS_PER_S,
+                        1e3 * 2 * proj / HBM_BYTES_PER_S)
+    med = float(np.median(step_ms))
+    rec = {"arch": LM_ARCH, "params": LM_PARAMS, "batch": B, "prompt": P,
+           "steps": T, "top_k": K, "init_s": init_s,
+           "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+           "prefill_bound_ms": prefill_bound,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "tokens_per_s": B / (med / 1e3),
+           "step_bytes": step_bytes, "step_bound_ms": step_bound,
+           "forward_ms": forward_ms, "peak_bytes": peak_bytes,
+           "head_ranks_compared": head_ranks,
+           "decode_vs_forward": {"bfloat16": bf16_err, "float32": fp32_err},
+           "card_vs_cpu": cross, "card_vs_cpu_s": cross_s,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase,
+           "card": gpu}
+    print(f"lm {LM_ARCH} ({gpu}): {B} prompts x {P} tokens, prefill "
+          f"{prefill_ms[1]:.2f} ms (first call {prefill_ms[0]:.2f}; bound "
+          f"{prefill_bound:.2f}); decode step median {med:.3f} ms (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{rec['tokens_per_s']:.1f} tokens/s, byte bound {step_bound:.3f}"
+          f" ms ({step_bytes / 1e9:.3f} GB a step); forward over {P + T} "
+          f"tokens {forward_ms:.2f} ms; peak memory "
+          f"{peak_bytes / 2**30:.2f} GiB; head vs float64 witness: {head_ranks}"
+          f" of {B * K} ranks compared id for id; decode vs forward bf16 "
+          f"{bf16_err:.3g}, fp32 {fp32_err:.3g}; {LM_CPU_LAYERS}-layer card "
+          f"vs CPU {cross} in {cross_s:.1f} s; phase {rec['phase_s']:.1f} s",
+          flush=True)
+    print("lm: " + json.dumps(rec), flush=True)
+
+
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
     """Step 14 of the module docstring. ``results`` holds the LSHTC-like
     ``naive`` and ``norm`` runs of the main path; ``cpu_ctx`` is a CPU
@@ -2413,6 +2740,7 @@ def run(dev, kind: str) -> None:
     stream_rows = streaming_path(servers, U_all, dev)
     lsm_rows = lsm_async_path(servers, U_all, dev)
     sharded_row = sharded_path(servers, U_all, results, cpu_ctx, dev)
+    lm_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())

@@ -6,7 +6,8 @@ model on one NVIDIA GPU: ``SepLRModel`` -> ``build_index`` and the
 hand-written CUDA kernel engine ``topk_mips``) -> ``TopKServer.query``.
 It also serves the recsys models (``models.recsys``: the query tower as
 the SEP-LR query, exact retrieval, then ``TwoStageRanker``'s full-model
-re-rank).
+re-rank) and the dense LMs (``models.transformer``: ``prefill``, then
+``serve_step`` through the exact top-K vocab head).
 
 Every entry point takes ``device=None``, which means ``"cuda"``: the port
 runs on the card unless the caller asks for the CPU, and it raises rather

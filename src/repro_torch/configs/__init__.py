@@ -1,11 +1,14 @@
-"""Registry of the ported architectures: the four recsys models, each a
-published configuration with its smoke configuration and shape cells.
-The LM and GNN architectures come with their models."""
-from repro_torch.configs import dcn_v2, deepfm, dlrm_rm2, fm
+"""Registry of the ported architectures: the three dense LMs and the four
+recsys models, each a published configuration with its smoke configuration
+and shape cells. The MoE LMs come with ``moe.py``, the GNN with its
+model."""
+from repro_torch.configs import (dcn_v2, deepfm, deepseek_67b, dlrm_rm2, fm,
+                                 gemma_2b, stablelm_3b)
 from repro_torch.configs.base import ArchSpec
 
 REGISTRY = {spec.arch_id: spec
-            for spec in [deepfm.SPEC, dcn_v2.SPEC, dlrm_rm2.SPEC, fm.SPEC]}
+            for spec in [deepseek_67b.SPEC, gemma_2b.SPEC, stablelm_3b.SPEC,
+                         deepfm.SPEC, dcn_v2.SPEC, dlrm_rm2.SPEC, fm.SPEC]}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

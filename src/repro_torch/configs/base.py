@@ -1,9 +1,9 @@
 """Architecture registry types: each architecture is a selectable config.
 
 An ArchSpec pairs the exact published configuration with its input-shape
-set, plus a reduced smoke configuration exercised by the CPU tests. Only
-the recsys family is ported so far; the LM and GNN shape sets come with
-their models.
+set, plus a reduced smoke configuration exercised by the CPU tests. The
+recsys family and the dense LMs are ported so far; the GNN shape set comes
+with its model.
 """
 
 from __future__ import annotations
@@ -16,14 +16,16 @@ from typing import Callable, Dict, Tuple
 class ShapeCell:
     """One (architecture x input-shape) cell."""
     name: str
-    kind: str                  # recsys_train | recsys_serve | recsys_retrieval
+    kind: str                  # lm_train | lm_prefill | lm_decode |
+    #                            recsys_train | recsys_serve |
+    #                            recsys_retrieval
     dims: Dict[str, int]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                        # recsys
+    family: str                        # lm | recsys
     source: str                        # the published configuration
     make_config: Callable[..., object]     # full config
     make_smoke_config: Callable[..., object]
@@ -36,6 +38,15 @@ class ArchSpec:
         raise KeyError(f"{self.arch_id} has no shape {name!r}; "
                        f"available: {[s.name for s in self.shapes]}")
 
+
+LM_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "lm_train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeCell("prefill_32k", "lm_prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeCell("decode_32k", "lm_decode", {"seq_len": 32768, "global_batch": 128}),
+    # long_500k is a DECODE shape (1 token against a 512k KV cache):
+    # linear in context, so full-attention archs run it.
+    ShapeCell("long_500k", "lm_decode", {"seq_len": 524288, "global_batch": 1}),
+)
 
 RECSYS_SHAPES: Tuple[ShapeCell, ...] = (
     ShapeCell("train_batch", "recsys_train", {"batch": 65536}),

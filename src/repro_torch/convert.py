@@ -12,11 +12,15 @@ a chosen device, so that both packages compute over the identical state:
   them ``None`` for a single-sided layout, ``rank_by_item`` and
   ``prefix_depth``) -> :class:`ListMajorLayout`
 
-:func:`recsys_params_from_reference` carries the reference's recsys
-parameters (``repro.models.recsys.init_params``: a nested dict of arrays
-with MLP lists of ``{"w", "b"}``) across as the same tree of tensors.
-Dense weights keep the reference's ``[in, out]`` layout (the port applies
-them as ``x @ w`` too), so nothing is transposed.
+:func:`params_from_reference` (also named
+``recsys_params_from_reference`` and ``transformer_params_from_reference``)
+carries the reference's model parameters across as the same tree of
+tensors: the recsys trees (``repro.models.recsys.init_params``: a nested
+dict of arrays with MLP lists of ``{"w", "b"}``) and the LM's
+(``repro.models.transformer.init_params``: ``embed``, ``final_norm``,
+``unembed`` and the ``[L, ...]`` layer stack). Dense weights keep the
+reference's ``[in, out]`` layout (the port applies them as ``x @ w``
+too), so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -81,17 +85,23 @@ def from_reference(arrays: Mapping[str, Any], device=None, name=None):
         f"{sorted(CATALOG_FIELDS)} or {sorted(LIST_FIELDS)}")
 
 
-def recsys_params_from_reference(params: Any, device=None) -> Any:
-    """The reference's recsys parameter tree (dicts and lists of numpy
-    arrays) as the same tree of float32 tensors on ``device`` (``None`` =
-    ``cuda``)."""
-    dev = resolve_device(device)
+def params_from_reference(params: Any, device=None) -> Any:
+    """The reference's parameter tree (nested dicts and lists of numpy
+    arrays: the recsys trees, or the LM's with its layers stacked
+    ``[L, ...]``) as the same tree of float32 tensors on ``device``
+    (``None`` = ``cuda``). A tree the reference cast to bf16 comes across
+    with the same values in float32."""
+    return _params_to(params, resolve_device(device))
 
-    def put(node):
-        if isinstance(node, Mapping):
-            return {key: put(v) for key, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [put(v) for v in node]
-        return torch.tensor(np.asarray(node, np.float32), device=dev)
 
-    return put(params)
+# the names each model family's callers use
+recsys_params_from_reference = params_from_reference
+transformer_params_from_reference = params_from_reference
+
+
+def _params_to(node: Any, dev: torch.device) -> Any:
+    if isinstance(node, Mapping):
+        return {key: _params_to(v, dev) for key, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_params_to(v, dev) for v in node]
+    return torch.tensor(np.asarray(node, np.float32), device=dev)

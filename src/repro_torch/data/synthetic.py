@@ -1,5 +1,5 @@
-"""Synthetic corpora shaped like the paper's datasets, and recsys click
-logs: numpy copies of the reference's ``data/synthetic.py`` generators, so
+"""Synthetic corpora shaped like the paper's datasets, LM token streams and
+recsys click logs: numpy copies of the reference's ``data/synthetic.py`` generators, so
 the same generator state gives bitwise-identical arrays in both packages.
 
 The paper's datasets (MovieLens, BookCrossing, Audioscrobbler, Uniprot,
@@ -94,6 +94,28 @@ def multilabel_factors(
         q, _ = np.linalg.qr(T.T @ T + 1e-3 * np.eye(n_features))
         T = (T @ q).astype(np.float32)
     return T
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+
+def lm_batches(seed: int, vocab: int, batch: int, seq_len: int,
+               shard: int = 0, num_shards: int = 1) -> Iterator[Dict]:
+    """Zipf-distributed token stream; labels = next token. Infinite.
+    Shard ``shard`` of ``num_shards`` gets ``batch // num_shards`` rows a
+    step from its own stream."""
+    local = batch // num_shards
+    step = 0
+    while True:
+        # (seed, step, shard) -> independent, reproducible stream
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, step, shard]))
+        toks = rng.zipf(1.2, (local, seq_len + 1)) % vocab
+        toks = toks.astype(np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step += 1
 
 
 # ---------------------------------------------------------------------------

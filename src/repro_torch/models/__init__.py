@@ -1,1 +1,2 @@
-"""Models of the port: the recsys architectures and their plumbing."""
+"""Models of the port: the recsys architectures, the dense LM
+(attention and the transformer's serving path) and their plumbing."""

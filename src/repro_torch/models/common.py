@@ -1,8 +1,8 @@
-"""Shared model plumbing for the recsys towers: activations, init, MLPs.
+"""Shared model plumbing: activations, init, norms, MLPs.
 
 Parameters are plain nested dicts and lists of tensors, as the reference's
-pytrees are, so that :func:`repro_torch.convert.recsys_params_from_reference`
-carries them across leaf for leaf. A dense layer's weight ``w`` is
+pytrees are, so that :mod:`repro_torch.convert` carries them across leaf
+for leaf. A dense layer's weight ``w`` is
 ``[in, out]`` and applies as ``x @ w``, as in the reference. Sharding
 (the reference's ``MeshRules``/``shard``) is a later slice of the port.
 """
@@ -34,6 +34,24 @@ def dense_init(generator: torch.Generator, shape) -> torch.Tensor:
             / math.sqrt(shape[-2]))
 
 
+def embed_init(generator: torch.Generator, shape,
+               scale: float = 1.0) -> torch.Tensor:
+    """Standard-normal embedding table in fp32 times ``scale``, drawn from
+    ``generator`` on its device."""
+    return torch.randn(tuple(shape), generator=generator,
+                       device=generator.device, dtype=torch.float32) * scale
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis, computed in fp32 and cast back to
+    ``x``'s dtype; the learned scale enters as ``1 + scale``."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
 def count_params(params: PyTree) -> int:
     """Number of scalars in a nested dict/list/tuple of tensors."""
     if isinstance(params, torch.Tensor):
@@ -43,6 +61,18 @@ def count_params(params: PyTree) -> int:
     if isinstance(params, (list, tuple)):
         return sum(count_params(v) for v in params)
     return 0
+
+
+def cast_tree(params: PyTree, dtype: torch.dtype) -> PyTree:
+    """The same tree with every floating-point tensor cast to ``dtype``
+    (a tensor already of ``dtype`` is kept, not copied)."""
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype) if params.is_floating_point() else params
+    if isinstance(params, dict):
+        return {key: cast_tree(v, dtype) for key, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(cast_tree(v, dtype) for v in params)
+    return params
 
 
 def mlp_params(generator: torch.Generator, dims: Sequence[int]):

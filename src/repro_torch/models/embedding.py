@@ -1,8 +1,11 @@
-"""Embedding tables for recsys: lookup and the ragged EmbeddingBag.
+"""Embedding tables: lookup and the ragged EmbeddingBag for recsys, the
+token lookup for the LM.
 
-Rows are taken as the reference's ``jnp.take`` takes them: an id in
-``[-V, 0)`` counts from the end of the table, any other out-of-range id
-gives a NaN row. Both functions are plain PyTorch, as the reference
+Recsys rows are taken as the reference's ``jnp.take`` takes them: an id
+in ``[-V, 0)`` counts from the end of the table, any other out-of-range id
+gives a NaN row. The LM's token rows are taken as the reference's
+``table[tokens]`` takes them (:func:`index_rows`): out-of-range ids are
+clamped into the table. Both functions are plain PyTorch, as the reference
 computes them outside any Pallas kernel; the fixed-arity bag that the
 recsys model runs on the card is kernel B5
 (:func:`repro_torch.kernels.ops.embedding_bag`). ``hashed_lookup`` (the
@@ -22,6 +25,15 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """One-hot field lookup. table: ``[V, d]``; ids: ``[...]`` ->
     ``[..., d]``."""
     return take_rows(table, ids)
+
+
+def index_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as jnp's indexing takes rows: an id in ``[-V, 0)``
+    counts from the end, any other id is clamped into ``[0, V)``.
+    Never indexes out of range."""
+    V = table.shape[0]
+    row = torch.where(ids < 0, ids + V, ids)
+    return table[row.clamp(0, V - 1).long()]
 
 
 def embedding_bag(
