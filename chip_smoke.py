@@ -194,7 +194,46 @@ checkout. In order, it
     decode step's median ms and tokens/s beside its byte bound, peak
     memory and the phase's seconds, with the card's name and power
     limit;
-16. prints one ``{"kernels": [...]}`` line and, last, the device line
+16. the MoE LM serving path, after gemma-2b's tensors are freed, with
+    every kernel count set to 0 just before and read just after each
+    part (each must stay 0: the MoE dispatch and the head are plain
+    PyTorch): (a) olmoe-1b-7b at full width and depth (16 layers,
+    d_model 2,048, 16 heads, 64 experts top-8, moe_d_ff 1,024, vocab
+    50,304; 6,919,096,320 random parameters drawn on the card, the layer
+    stack and the experts cast to bf16 once; the router stays fp32)
+    served as step 15 serves gemma-2b — 16 x 1,024 prompt tokens
+    prefilled (timed twice), 32 greedy ``serve_step(top_k=8)`` — checked
+    the same way (finite, in range, the float64 witness), with each
+    layer's drop rate at the prefill (capacity 2,560) and the steps
+    (capacity 8), one step profiled, and the step's byte bound counting
+    every expert's bf16 weights (the capacity buffer covers them all; the
+    operations count the kept routed assignments and the prefill's causal
+    half of the attention); the
+    decode path against ``forward`` runs drop-free (capacity factor
+    E / top_k: a step's capacity is not the forward's), at bf16 (16
+    prompts, 4 steps: the last hidden state within ``LM_MOE_TOL_BF16``
+    normwise and at most ``LM_MOE_FLIP_SHARE`` of the (layer, row) expert
+    sets differing) and at fp32 (within ``LM_TOL``, no set differing);
+    (b) a 2-layer cut drawn on the CPU and copied to the card, 4 prompts
+    of 64 tokens and 2 steps, card against CPU at fp32 and bf16 (at fp32
+    no token routed otherwise; at bf16 each row's first routing flip, in
+    the prefill and in each step, a near-tie of the router logits within
+    ``LM_MOE_TIE``, at least ``LM_MOE_CUT_SHARE`` of the prompt's
+    positions before the flips, each row compared up to its first flip,
+    the steps from the CPU's prefill cache on both sides over the rows
+    still routed alike); (c) the same cut over 4 logical shards of the card as
+    ``("data", "model")`` meshes of ``(1, 4)`` and ``(2, 2)`` —
+    ``prefill`` and ``serve_step`` through the expert-parallel dispatch
+    and the vocab-sharded head, against the same calls on a CPU mesh at
+    fp32, the sharded head id for id the unsharded one on the same hidden
+    state, and an EP step's ms beside a non-EP step's (bf16, 16 rows);
+    (d) llama4-scout-17b-a16e at full width cut to 2 layers (48 layers
+    are 407 GB of fp32 weights): 4 x 256 prompt tokens and 8 steps
+    through top-1 routing, GQA 40/8 and the 202,048-word head, finite,
+    descending and held against the float64 witness. It prints ``lm
+    ...``/``lm: {json}`` lines for olmoe (drop rates, EP and non-EP step
+    ms, the mesh errors) and ``lm scout: {json}``;
+17. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -319,6 +358,30 @@ LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 64, 2
 # an attention mask one position short gives 4.7%, a RoPE position off by
 # one 11%, which the fp32 check catches at any depth).
 LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# The MoE LM phase: olmoe-1b-7b at full width and depth, served like
+# gemma-2b above. Its decode-vs-forward check runs drop-free (capacity
+# factor E / top_k) over 4 steps; at bf16 near-tied experts may flip
+# between the two paths, so it holds the last hidden state to
+# LM_MOE_TOL_BF16 (gemma's LM_TOL; 0.0258 measured) and the (layer, row)
+# expert sets that differ to LM_MOE_FLIP_SHARE of all (18 of 256, 7%,
+# measured; PERF.md §5). Its 2-layer cut runs 4 prompts on the CPU: at
+# bf16 each row's first routing flip must be a near-tie, its k-th and
+# (k+1)-th router logits within LM_MOE_TIE of the token's largest
+# magnitude (the CPU tests' bf16 tolerance), and at least
+# LM_MOE_CUT_SHARE of the prompt positions must precede their row's first
+# flip (94 of 256, 37%, measured). Then the cut runs over 4 logical
+# shards of the card as (1, 4) and (2, 2) ("data", "model") meshes, an
+# EP step timed LM_MESH_STEP_REPS times. llama4-scout runs at full width
+# cut to 2 layers.
+MOE_ARCH, MOE_PARAMS = "olmoe-1b-7b", 6_919_096_320
+LM_MOE_CHECK_STEPS = 4
+LM_MOE_TOL_BF16, LM_MOE_FLIP_SHARE = 5e-2, 0.15
+LM_MOE_TIE, LM_MOE_CUT_SHARE = 3e-2, 0.25
+LM_MOE_CPU_BATCH = 4
+LM_MESHES = ((1, 4), (2, 2))
+LM_MESH_STEP_REPS = 5
+SCOUT_ARCH, SCOUT_PARAMS = "llama4-scout-17b-a16e", 101_730_063_360
+SCOUT_BATCH, SCOUT_PROMPT, SCOUT_STEPS = 4, 256, 8
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores;
 # dense bf16 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -593,14 +656,15 @@ def path_sweep(T, ids, U) -> dict:
     return out
 
 
-def profile_call(label: str, fn, kernels: dict, cpu: bool = True) -> None:
+def profile_call(label: str, fn, kernels: dict, cpu: bool = True):
     """Device time by kernel over one call of ``fn`` (``torch.profiler``),
     the device's busy share of the call's wall time, and the launches and
     share of each kernel in ``kernels`` (printed name -> a substring of
     its CUDA kernel's name). ``cpu=False`` records device activity only,
     for a call of thousands of loop steps whose host-side operator events
     would take minutes to post-process. Measurement only: a profiler that
-    records no device time says so."""
+    records no device time says so (and returns None; else the wall, busy
+    and launch totals and the six costliest kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -622,7 +686,7 @@ def profile_call(label: str, fn, kernels: dict, cpu: bool = True) -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     if not events:
         print("  profile: the profiler recorded no device time", flush=True)
-        return
+        return None
     print(f"  profile of {label}: wall {wall_us:.0f} us, "
           f"device busy {busy_us:.0f} us ({busy_us / wall_us:.1%}) in "
           f"{sum(e.count for e in events)} kernel launches", flush=True)
@@ -634,6 +698,12 @@ def profile_call(label: str, fn, kernels: dict, cpu: bool = True) -> None:
         us = sum(e.self_device_time_total for e in mine)
         print(f"  profile: {name} {sum(e.count for e in mine)} launches, "
               f"{us:.0f} us = {us / wall_us:.2%} of the wall", flush=True)
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "launches": sum(e.count for e in events),
+            "top": [(e.key[:60], e.self_device_time_total, e.count)
+                    for e in sorted(events,
+                                    key=lambda e: -e.self_device_time_total)
+                    [:6]]}
 
 
 def edge_cases(rng, device):
@@ -2026,6 +2096,26 @@ def oracle_path(dev) -> None:
           + "; partial's n_scored equals ta's query for query", flush=True)
 
 
+def zero_counters() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.fm_interaction import fm_interaction
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    for c in (topk_mips, gather_scores, embedding_bag, fm_interaction):
+        c.launches = 0
+
+
+def read_counters() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.fm_interaction import fm_interaction
+    from repro_torch.kernels.gather_scores import gather_scores
+    from repro_torch.kernels.topk_mips import topk_mips
+    return {c.__name__: c.launches for c in (topk_mips, gather_scores,
+                                             embedding_bag, fm_interaction)}
+
+
 def normwise(got, want) -> float:
     """``||got - want|| / ||want||`` in fp32 over any shapes and devices."""
     got, want = got.float().cpu(), want.float().cpu()
@@ -2082,16 +2172,25 @@ def lm_head_witness(hidden, unembed, vals, ids) -> int:
     return int(clear.sum())
 
 
-def lm_decode(params, cfg, prompt, steps: int, top_k: int, timed=None):
+def lm_decode(params, cfg, prompt, steps: int, top_k: int, timed=None,
+              moe_aux=None):
     """``prefill`` then ``steps`` greedy ``serve_step``s from the top-K
     head. Returns ``(cache, fed tokens, [(values, ids)] of the prefill head
     and each step)``; with ``timed`` a list, appends each step's host ms
-    (after a synchronize)."""
+    (after a synchronize); with ``moe_aux`` a list, appends the MoE layers'
+    aux dicts of the prefill, then of each step (one list each)."""
     import torch
     from repro_torch.models import transformer as tf
     B, P = prompt.shape
     dt = cfg.compute_dtype
-    h, pre = tf.prefill(params, prompt, cfg, cache_dtype=dt)
+
+    def aux():
+        if moe_aux is None:
+            return None
+        moe_aux.append([])
+        return moe_aux[-1]
+
+    h, pre = tf.prefill(params, prompt, cfg, cache_dtype=dt, moe_aux=aux())
     cache = tf.init_kv_cache(cfg, B, P + steps, dtype=dt,
                              device=prompt.device)
     for key in ("k", "v"):
@@ -2105,7 +2204,7 @@ def lm_decode(params, cfg, prompt, steps: int, top_k: int, timed=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         out, cache = tf.serve_step(params, cache, fed[-1], P + step, cfg,
-                                   top_k=top_k)
+                                   top_k=top_k, moe_aux=aux())
         if timed is not None:
             torch.cuda.synchronize()
             timed.append(1e3 * (time.perf_counter() - t0))
@@ -2113,33 +2212,130 @@ def lm_decode(params, cfg, prompt, steps: int, top_k: int, timed=None):
     return cache, fed, outs
 
 
-def lm_path(dev) -> None:
-    """The dense LM serving phase: gemma-2b at full width and depth."""
+def expert_sets(aux_list, B: int, S: int):
+    """``[L, B, S, k]`` sorted expert ids of one call's MoE layers."""
+    import torch
+    return torch.stack([a["expert_ids"].reshape(B, S, -1).sort(-1).values
+                        .cpu() for a in aux_list])
+
+
+def first_flips(aux_a, aux_b, B: int, S: int, dtype: str,
+                rows=None) -> tuple:
+    """Two runs' routing of the same ``[B, S]`` tokens, MoE layer by layer:
+    per row, the first position whose expert set differs in any layer
+    (``S`` where none). A flip changes its token's hidden state and,
+    through attention, every later position's, so only the first is held
+    to a rule: at fp32 none may occur; at bf16 it must be a near-tie in
+    the first layer where it occurs, ``aux_b``'s k-th and (k+1)-th router
+    logits of the token within ``LM_MOE_TIE`` of its largest magnitude
+    and within twice the largest difference between the two runs' logits
+    of the token (what the difference in the router's input can
+    reorder). ``rows`` limits the rule to those rows. Returns the first
+    positions and, for each checked flip, its gap over the largest
+    magnitude."""
+    import torch
+    sets_a, sets_b = expert_sets(aux_a, B, S), expert_sets(aux_b, B, S)
+    k = sets_a.shape[-1]
+    diff = (sets_a != sets_b).any(-1)                          # [L, B, S]
+    first = torch.where(diff.any(0), torch.arange(S), S).amin(1).tolist()
+    gaps = []
+    for b, f in enumerate(first):
+        if f == S or (rows is not None and b not in rows):
+            continue
+        check(dtype == "bfloat16", f"{dtype}: row {b} routed otherwise at "
+              f"position {f}")
+        layer = int(diff[:, b, f].nonzero()[0])
+        la, lb = (aux[layer]["router_logits"].reshape(B, S, -1)[b, f]
+                  .double().cpu() for aux in (aux_a, aux_b))
+        top = lb.sort(descending=True).values
+        gap, scale = float(top[k - 1] - top[k]), float(lb.abs().max())
+        check(gap <= LM_MOE_TIE * scale
+              and gap <= 2 * float((la - lb).abs().max()),
+              f"row {b}'s first routing flip (position {f}, layer {layer}) "
+              f"is no near-tie: a gap of {gap:.4g} against the largest "
+              f"logit magnitude {scale:.4g}")
+        gaps.append(gap / scale)
+    return first, gaps
+
+
+def drop_rates(aux_list) -> list:
+    return [float(a["drop_rate"]) for a in aux_list]
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    from repro_torch.models.moe import expert_capacity
+    return expert_capacity(n_tokens, cfg.moe_top_k, cfg.capacity_factor,
+                           cfg.n_experts)
+
+
+def lm_bounds(cfg, B: int, P: int, T: int, prefill_kept=None,
+              step_kept=None) -> dict:
+    """The least times of a decode step (B tokens at a context of P + T)
+    and of the prefill (B x P tokens): bytes each input once over the HBM
+    rate, against the operations this run's data needs over the peak rate
+    of their type. A MoE layer reads every expert's bf16 weights each step
+    (the capacity buffer covers them all); its expert GEMMs count the
+    routed assignments the layer kept (``*_kept``: each layer's share, 1
+    - its drop rate; all by default), not the padded ``[E, capacity]``
+    buffer. The prefill's attention counts the causal half: position p
+    attends to p + 1 keys."""
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    attn = D * cfg.q_dim + 2 * D * cfg.kv_dim + cfg.q_dim * D
+    if cfg.moe:
+        E, F = cfg.n_experts, cfg.moe_d_ff
+        ffn, router, row = 3 * E * D * F, D * E, 3 * D * F
+    else:
+        ffn, router, row = 3 * D * cfg.d_ff, 0, 0
+    proj = L * (attn + ffn)
+    cache_bytes = 2 * L * B * (P + T) * cfg.kv_dim * 2
+    step_bytes = 2 * proj + 4 * L * router + 4 * (2 * L * D + D) \
+        + 4 * D * V + cache_bytes + 4 * B * D
+
+    def gemm_ops(n_tokens, kept):
+        """bf16 projection operations, fp32 router operations."""
+        if not cfg.moe:
+            return 2 * n_tokens * proj, 0
+        rows = n_tokens * cfg.moe_top_k * sum(kept or [1.0] * L)
+        return (2 * n_tokens * L * attn + 2 * rows * row,
+                2 * n_tokens * L * router)
+
+    bf16_ops, fp32_ops = gemm_ops(B, step_kept)
+    step_ops_ms = 1e3 * (bf16_ops / BF16_FLOPS_PER_S
+                         + (fp32_ops + 2 * B * D * V) / FP32_FLOPS_PER_S)
+    bf16_ops, fp32_ops = gemm_ops(B * P, prefill_kept)
+    causal = 4 * L * B * cfg.n_heads * cfg.head_dim * P * (P + 1) // 2
+    prefill_ops_ms = 1e3 * ((bf16_ops + causal) / BF16_FLOPS_PER_S
+                            + fp32_ops / FP32_FLOPS_PER_S)
+    return {"step_bytes": step_bytes,
+            "step_bound_ms": max(1e3 * step_bytes / HBM_BYTES_PER_S,
+                                 step_ops_ms),
+            "prefill_bound_ms": max(prefill_ops_ms,
+                                    1e3 * 2 * proj / HBM_BYTES_PER_S)}
+
+
+def lm_path(dev, arch: str, n_params: int) -> None:
+    """The LM serving phase of ``arch`` at full width and depth: step 15
+    of the module docstring for gemma-2b, step 16's (a) and (b) for
+    olmoe-1b-7b, whose (c) it runs on its 2-layer cut."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import lm_batches
-    from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.fm_interaction import fm_interaction
-    from repro_torch.kernels.gather_scores import gather_scores
-    from repro_torch.kernels.topk_mips import topk_mips
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import count_params
 
     t_phase = time.perf_counter()
     gpu = gpu_name_and_power()
-    cfg = get_arch(LM_ARCH).make_config()
-    check(cfg.param_count() == LM_PARAMS,
-          f"{LM_ARCH}: param_count {cfg.param_count()} != {LM_PARAMS}")
+    cfg = get_arch(arch).make_config()
+    check(cfg.param_count() == n_params,
+          f"{arch}: param_count {cfg.param_count()} != {n_params}")
     B, P, T, K, V = LM_BATCH, LM_PROMPT, LM_STEPS, LM_TOP_K, cfg.vocab_size
     prompt = torch.from_numpy(
         next(lm_batches(SEED, V, B, P))["tokens"]).to(dev)
-    counters = (topk_mips, gather_scores, embedding_bag, fm_interaction)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counters()
 
     # -- the weights, drawn on the card; the layer stack cast to bf16 once ---
     t0 = time.perf_counter()
@@ -2147,161 +2343,440 @@ def lm_path(dev) -> None:
     served = tf.serving_params(params, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(count_params(params) == LM_PARAMS,
-          f"{LM_ARCH}: {count_params(params)} parameters drawn")
+    check(count_params(params) == n_params,
+          f"{arch}: {count_params(params)} parameters drawn")
 
     # -- prefill, timed twice (the first call sets up cuBLAS) ----------------
-    prefill_ms = []
+    prefill_ms, prefill_aux = [], []
     for _ in range(2):
+        prefill_aux.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tf.prefill(served, prompt, cfg)
+        tf.prefill(served, prompt, cfg, moe_aux=prefill_aux)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t0))
 
     # -- the served path: prefill, then T greedy top-K decode steps ----------
-    step_ms = []
-    cache, fed, outs = lm_decode(served, cfg, prompt, T, K, timed=step_ms)
+    step_ms, steps_aux = [], []
+    cache, fed, outs = lm_decode(served, cfg, prompt, T, K, timed=step_ms,
+                                 moe_aux=steps_aux)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counters()
     check(not any(launches.values()),
-          f"the LM path launched a kernel {launches}: its head is the "
+          f"the {arch} path launched a kernel {launches}: its head is the "
           "plain fp32 product and stable top-K, as the reference's")
     for vals, ids in outs:
         check(vals.shape == (B, K) and bool(torch.isfinite(vals).all())
               and bool((vals[:, :-1] >= vals[:, 1:]).all()),
-              f"{LM_ARCH}: top-{K} values not finite and descending")
+              f"{arch}: top-{K} values not finite and descending")
         check(ids.dtype == torch.int32 and bool(((ids >= 0) & (ids < V))
                                                 .all()),
-              f"{LM_ARCH}: top-{K} ids outside [0, {V})")
+              f"{arch}: top-{K} ids outside [0, {V})")
 
     # the last step's hidden state, for the head's witness below (the step
     # rerun: it writes the same cache row)
     h_last = tf.decode_hidden(served, cache, fed[-1], P + T - 1, cfg)
     check(bool(torch.isfinite(h_last.float()).all()),
-          f"{LM_ARCH}: the decode path's hidden state is not finite")
+          f"{arch}: the decode path's hidden state is not finite")
 
     # where a step's time goes: the last step again (it rewrites the same
     # cache row)
-    profile_call(f"one {LM_ARCH} decode step", lambda: tf.serve_step(
+    prof = profile_call(f"one {arch} decode step", lambda: tf.serve_step(
         served, cache, fed[-1], P + T - 1, cfg, top_k=K), {})
 
     # the decode path's last hidden state against forward over the tokens
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    h_fwd = tf.forward(served, torch.cat([prompt] + fed, dim=1), cfg)[0]
-    torch.cuda.synchronize()
-    forward_ms = 1e3 * (time.perf_counter() - t0)
-    bf16_err = normwise(h_last, h_fwd[:, -1])
-    check(bf16_err <= LM_TOL["bfloat16"],
-          f"{LM_ARCH}: decode path vs forward, bf16: {bf16_err:.3g} > "
-          f"{LM_TOL['bfloat16']}")
+    moe_check = {}
+    if cfg.moe:
+        # drop-free (an expert's capacity is every token): a step's
+        # capacity is not the forward's, and capacity decides what drops
+        del cache
+        check_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        steps = LM_MOE_CHECK_STEPS
+        c_cache, c_fed, _ = lm_decode(served, check_cfg, prompt, steps, K)
+        dec_aux, fwd_aux = [], []
+        h_dec = tf.decode_hidden(served, c_cache, c_fed[-1], P + steps - 1,
+                                 check_cfg, moe_aux=dec_aux)
+        del c_cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_fwd = tf.forward(served, torch.cat([prompt] + c_fed, dim=1),
+                           check_cfg, moe_aux=fwd_aux)[0]
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+        bf16_err = normwise(h_dec, h_fwd[:, -1])
+        differ = (expert_sets(dec_aux, B, 1)[:, :, 0]
+                  != expert_sets(fwd_aux, B, P + steps)[:, :, -1]
+                  ).any(-1)                                  # [L, B]
+        moe_check = {"bf16_set_flips": int(differ.sum()),
+                     "bf16_pairs": int(differ.numel()),
+                     "forward_drop_free": max(drop_rates(fwd_aux)) == 0.0}
+        check(moe_check["forward_drop_free"],
+              f"{arch}: the drop-free forward dropped tokens")
+        check(moe_check["bf16_set_flips"]
+              <= LM_MOE_FLIP_SHARE * moe_check["bf16_pairs"],
+              f"{arch}: decode vs forward, bf16: {differ.sum()} of "
+              f"{differ.numel()} (layer, row) expert sets differ")
+        bf16_tol = LM_MOE_TOL_BF16
+    else:
+        check_cfg = cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_fwd = tf.forward(served, torch.cat([prompt] + fed, dim=1), cfg)[0]
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+        bf16_err = normwise(h_last, h_fwd[:, -1])
+        bf16_tol = LM_TOL["bfloat16"]
+    check(bf16_err <= bf16_tol,
+          f"{arch}: decode path vs forward, bf16: {bf16_err:.3g} > "
+          f"{bf16_tol}")
     peak_bytes = torch.cuda.max_memory_allocated()
     # (after the peak is read: the witness holds a float64 unembed)
     head_ranks = lm_head_witness(h_last, served["unembed"], *outs[-1])
-    check(head_ranks > 0, f"{LM_ARCH}: no rank of the head stood clear")
-    del served, cache, h_fwd
+    check(head_ranks > 0, f"{arch}: no rank of the head stood clear")
+    del served, h_fwd
+    if not cfg.moe:
+        del cache
 
     # the same at fp32 (the fp32 parameters as drawn), shorter
-    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    cfg32 = dataclasses.replace(check_cfg, compute_dtype=torch.float32)
     prompt32 = prompt[:LM_FP32_BATCH, :LM_FP32_PROMPT]
-    cache, fed, _ = lm_decode(params, cfg32, prompt32, LM_FP32_STEPS, K)
-    h_last = tf.decode_hidden(params, cache, fed[-1],
-                              prompt32.shape[1] + LM_FP32_STEPS - 1, cfg32)
-    h_fwd = tf.forward(params, torch.cat([prompt32] + fed, dim=1), cfg32)[0]
-    fp32_err = normwise(h_last, h_fwd[:, -1])
+    P32 = prompt32.shape[1] + LM_FP32_STEPS
+    cache, fed32, _ = lm_decode(params, cfg32, prompt32, LM_FP32_STEPS, K)
+    dec_aux, fwd_aux = [], []
+    h_dec = tf.decode_hidden(params, cache, fed32[-1], P32 - 1, cfg32,
+                             moe_aux=dec_aux)
+    h_fwd = tf.forward(params, torch.cat([prompt32] + fed32, dim=1), cfg32,
+                       moe_aux=fwd_aux)[0]
+    fp32_err = normwise(h_dec, h_fwd[:, -1])
     check(fp32_err <= LM_TOL["float32"],
-          f"{LM_ARCH}: decode path vs forward, fp32: {fp32_err:.3g} > "
+          f"{arch}: decode path vs forward, fp32: {fp32_err:.3g} > "
           f"{LM_TOL['float32']}")
+    if cfg.moe:
+        check(bool((expert_sets(dec_aux, LM_FP32_BATCH, 1)[:, :, 0]
+                    == expert_sets(fwd_aux, LM_FP32_BATCH, P32)[:, :, -1])
+                   .all()) and max(drop_rates(fwd_aux)) == 0.0,
+              f"{arch}: decode vs forward, fp32: the experts differ")
     del params, cache, h_fwd
     torch.cuda.empty_cache()
 
-    # -- a 2-layer cut across the card and the CPU ---------------------------
+    # -- a 2-layer cut across the card and the CPU (and, MoE, the mesh) ------
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
-    on_cpu = tf.init_params(cfg2, torch.Generator().manual_seed(SEED), "cpu")
-    on_card = tree_to(on_cpu, dev)
-    cut = prompt[:LM_CPU_BATCH, :LM_CPU_PROMPT]
-    cross = {}
-    for dtype in ("float32", "bfloat16"):
-        c = dataclasses.replace(cfg2, compute_dtype=getattr(torch, dtype))
-        card, cpu = (tf.serving_params(p, c) for p in (on_card, on_cpu))
-        h_card, pre_card = tf.prefill(card, cut, c, cache_dtype=c.compute_dtype)
-        h_cpu, pre_cpu = tf.prefill(cpu, cut.cpu(), c,
-                                    cache_dtype=c.compute_dtype)
-        errs = [normwise(h_card, h_cpu)] + [
-            normwise(pre_card[key], pre_cpu[key]) for key in ("k", "v")]
-        caches = []
-        for p, h, pre, dv in ((card, h_card, pre_card, dev),
-                              (cpu, h_cpu, pre_cpu, "cpu")):
-            cache = tf.init_kv_cache(c, LM_CPU_BATCH,
-                                     LM_CPU_PROMPT + LM_CPU_STEPS,
-                                     dtype=c.compute_dtype, device=dv)
-            for key in ("k", "v"):
-                cache[key][:, :, :LM_CPU_PROMPT] = pre[key]
-            caches.append(cache)
-        tok = tf.topk_logits(h_card, card["unembed"], K)[1][:, :1]
-        for step in range(LM_CPU_STEPS):
-            pos = LM_CPU_PROMPT + step
-            got, caches[0] = tf.serve_step(card, caches[0], tok, pos, c,
-                                           top_k=K + 1)
-            want, caches[1] = tf.serve_step(cpu, caches[1], tok.cpu(), pos,
-                                            c, top_k=K + 1)
-            check(lm_topk_agree(got, want, dtype, K),
-                  f"{LM_ARCH} x{LM_CPU_LAYERS}, {dtype}: serve_step step "
-                  f"{step} on the card differs from the CPU")
-            tok = got[1][:, :1]
-        errs += [normwise(caches[0][key], caches[1][key])
-                 for key in ("k", "v")]
-        cross[dtype] = max(errs)
-        check(cross[dtype] <= LM_TOL[dtype],
-              f"{LM_ARCH} x{LM_CPU_LAYERS}, {dtype}: card vs CPU "
-              f"{errs} > {LM_TOL[dtype]}")
+    cross, cut_flips, cut_gaps, mesh_rec = lm_cut(dev, cfg, prompt)
     cross_s = time.perf_counter() - t0
-    del on_card, on_cpu
 
     # -- the numbers ----------------------------------------------------------
-    L, D = cfg.n_layers, cfg.d_model
-    proj = sum(cfg.n_layers * n for n in (
-        D * cfg.q_dim, 2 * D * cfg.kv_dim, cfg.q_dim * D, 3 * D * cfg.d_ff))
-    cache_bytes = 2 * L * B * (P + T) * cfg.kv_dim * 2
-    step_bytes = 2 * proj + 4 * (2 * L * D + D) + 4 * D * V + cache_bytes \
-        + 4 * B * D
-    step_ops_ms = 1e3 * (2 * B * proj / BF16_FLOPS_PER_S
-                         + 2 * B * D * V / FP32_FLOPS_PER_S)
-    step_bound = max(1e3 * step_bytes / HBM_BYTES_PER_S, step_ops_ms)
-    n_blk = -(-P // cfg.kv_block) * cfg.kv_block
-    prefill_ops = 2 * B * P * proj + 4 * L * B * cfg.n_heads * P * n_blk \
-        * cfg.head_dim
-    prefill_bound = max(1e3 * prefill_ops / BF16_FLOPS_PER_S,
-                        1e3 * 2 * proj / HBM_BYTES_PER_S)
+    kept = {}
+    if cfg.moe:
+        step_drops = np.array([drop_rates(a) for a in steps_aux[1:]])
+        kept = {"prefill_kept": [1 - d for d in drop_rates(prefill_aux)],
+                "step_kept": (1 - step_drops.mean(0)).tolist()}
+    bounds = lm_bounds(cfg, B, P, T, **kept)
     med = float(np.median(step_ms))
-    rec = {"arch": LM_ARCH, "params": LM_PARAMS, "batch": B, "prompt": P,
+    rec = {"arch": arch, "params": n_params, "batch": B, "prompt": P,
            "steps": T, "top_k": K, "init_s": init_s,
            "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
-           "prefill_bound_ms": prefill_bound,
            "step_ms_median": med, "step_ms_min": min(step_ms),
            "step_ms_max": max(step_ms), "tokens_per_s": B / (med / 1e3),
-           "step_bytes": step_bytes, "step_bound_ms": step_bound,
-           "forward_ms": forward_ms, "peak_bytes": peak_bytes,
+           **bounds, "forward_ms": forward_ms, "peak_bytes": peak_bytes,
            "head_ranks_compared": head_ranks,
            "decode_vs_forward": {"bfloat16": bf16_err, "float32": fp32_err},
            "card_vs_cpu": cross, "card_vs_cpu_s": cross_s,
            "launches": launches, "phase_s": time.perf_counter() - t_phase,
            "card": gpu}
-    print(f"lm {LM_ARCH} ({gpu}): {B} prompts x {P} tokens, prefill "
+    if prof is not None:
+        rec["step_profile"] = {key: prof[key] for key in ("wall_us",
+                                                          "busy_us",
+                                                          "launches")}
+    if cfg.moe:
+        rec.update(moe_check)
+        rec["prefill_capacity"] = moe_capacity(cfg, B * P)
+        rec["step_capacity"] = moe_capacity(cfg, B)
+        rec["prefill_drop_rate"] = drop_rates(prefill_aux)
+        rec["step_drop_rate_mean_by_layer"] = step_drops.mean(0).tolist()
+        rec["step_drop_rate_max"] = float(step_drops.max())
+        rec["cut_first_flips"] = cut_flips
+        rec["cut_flip_gaps"] = cut_gaps
+        rec["mesh"] = mesh_rec
+    moe_note = ""
+    if cfg.moe:
+        moe_note = (f"; drop rate prefill (capacity "
+                    f"{rec['prefill_capacity']}) mean "
+                    f"{np.mean(rec['prefill_drop_rate']):.4f} by layer "
+                    f"{[round(d, 4) for d in rec['prefill_drop_rate']]}, "
+                    f"steps (capacity {rec['step_capacity']}) mean "
+                    f"{step_drops.mean():.5f} max "
+                    f"{rec['step_drop_rate_max']:.4f}; cut, bf16: first "
+                    f"flips in the prefill at {cut_flips['bfloat16']} of "
+                    f"{LM_CPU_PROMPT}, the flips' gaps over the largest logit "
+                    f"{[round(g, 5) for g in cut_gaps]}; decode vs drop-free "
+                    f"forward, bf16: {moe_check['bf16_set_flips']} of "
+                    f"{moe_check['bf16_pairs']} (layer, row) expert sets "
+                    f"differ")
+    print(f"lm {arch} ({gpu}): {B} prompts x {P} tokens, prefill "
           f"{prefill_ms[1]:.2f} ms (first call {prefill_ms[0]:.2f}; bound "
-          f"{prefill_bound:.2f}); decode step median {med:.3f} ms (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
-          f"{rec['tokens_per_s']:.1f} tokens/s, byte bound {step_bound:.3f}"
-          f" ms ({step_bytes / 1e9:.3f} GB a step); forward over {P + T} "
-          f"tokens {forward_ms:.2f} ms; peak memory "
-          f"{peak_bytes / 2**30:.2f} GiB; head vs float64 witness: {head_ranks}"
-          f" of {B * K} ranks compared id for id; decode vs forward bf16 "
-          f"{bf16_err:.3g}, fp32 {fp32_err:.3g}; {LM_CPU_LAYERS}-layer card "
-          f"vs CPU {cross} in {cross_s:.1f} s; phase {rec['phase_s']:.1f} s",
+          f"{bounds['prefill_bound_ms']:.2f}); decode step median {med:.3f} "
+          f"ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{rec['tokens_per_s']:.1f} tokens/s, byte bound "
+          f"{bounds['step_bound_ms']:.3f} ms "
+          f"({bounds['step_bytes'] / 1e9:.3f} GB a step); forward "
+          f"{forward_ms:.2f} ms; peak memory {peak_bytes / 2**30:.2f} GiB; "
+          f"head vs float64 witness: {head_ranks} of {B * K} ranks "
+          f"compared id for id; decode vs forward bf16 {bf16_err:.3g}, "
+          f"fp32 {fp32_err:.3g}; {LM_CPU_LAYERS}-layer card vs CPU {cross} "
+          f"in {cross_s:.1f} s{moe_note}; phase {rec['phase_s']:.1f} s",
           flush=True)
     print("lm: " + json.dumps(rec), flush=True)
+
+
+def lm_cut(dev, cfg, prompt):
+    """A 2-layer cut of ``cfg``, drawn once on the CPU and copied to the
+    card: ``prefill`` and ``serve_step`` on the card against the CPU at
+    fp32 and bf16. The prefills are compared (hidden state and caches),
+    then the steps, each side's from its own prefill cache. A MoE cut at
+    bf16, where near-tied experts may flip between the two GEMM libraries'
+    roundings (``first_flips``: each row's first flip a near-tie, at least
+    ``LM_MOE_CUT_SHARE`` of the positions before the flips), compares each
+    row's prefill cache up to its first flip and its last hidden state
+    only in a row without one; its steps start from one state, the CPU's
+    prefill cache on both sides, and compare the rows whose step routing
+    agrees, each step flip a near-tie too. At fp32 no token may flip. Then
+    it runs the mesh checks (``moe_mesh_path``). Returns ``(worst normwise
+    error by dtype, each row's first flip in the prefill by dtype (the
+    prompt's length where none), the flips' gaps over the largest logit
+    magnitude, the mesh record or None)``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    on_cpu = tf.init_params(cfg2, torch.Generator().manual_seed(SEED), "cpu")
+    on_card = tree_to(on_cpu, dev)
+    rows = LM_MOE_CPU_BATCH if cfg.moe else LM_CPU_BATCH
+    P, steps, K = LM_CPU_PROMPT, LM_CPU_STEPS, LM_TOP_K
+    cut = prompt[:rows, :P]
+    cross, flipped, gaps = {}, {}, []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg2, compute_dtype=getattr(torch, dtype))
+        card, cpu = (tf.serving_params(p, c) for p in (on_card, on_cpu))
+        aux_card, aux_cpu = [], []
+        h_card, pre_card = tf.prefill(card, cut, c,
+                                      cache_dtype=c.compute_dtype,
+                                      moe_aux=aux_card)
+        h_cpu, pre_cpu = tf.prefill(cpu, cut.cpu(), c,
+                                    cache_dtype=c.compute_dtype,
+                                    moe_aux=aux_cpu)
+        first = [P] * rows
+        if c.moe:
+            first, g = first_flips(aux_card, aux_cpu, rows, P, dtype)
+            gaps += g
+            check(sum(first) >= LM_MOE_CUT_SHARE * rows * P,
+                  f"{cfg.name} x{LM_CPU_LAYERS}, {dtype}: card vs CPU, "
+                  f"first routing flips at {first} of {P}")
+        clean = [b for b, f in enumerate(first) if f == P]
+        flipped[dtype] = first
+        errs = [normwise(*(torch.cat([pre[key][:, b, :f].cpu().float()
+                                      for b, f in enumerate(first)], dim=1)
+                           for pre in (pre_card, pre_cpu)))
+                for key in ("k", "v")]
+        if clean:
+            errs.append(normwise(h_card[clean], h_cpu[clean]))
+        caches = []
+        for pre, dv in zip((pre_cpu if c.moe else pre_card, pre_cpu),
+                           (dev, "cpu")):
+            cache = tf.init_kv_cache(c, rows, P + steps,
+                                     dtype=c.compute_dtype, device=dv)
+            for key in ("k", "v"):
+                cache[key][:, :, :P] = pre[key]
+            caches.append(cache)
+        same = list(range(rows))
+        h, U = (h_cpu, cpu["unembed"]) if c.moe else (h_card, card["unembed"])
+        tok = tf.topk_logits(h, U, K)[1][:, :1].to(dev)
+        for step in range(steps):
+            pos = P + step
+            sa, sb = [], []
+            got, caches[0] = tf.serve_step(card, caches[0], tok, pos, c,
+                                           top_k=K + 1, moe_aux=sa)
+            want, caches[1] = tf.serve_step(cpu, caches[1], tok.cpu(), pos,
+                                            c, top_k=K + 1, moe_aux=sb)
+            if c.moe:
+                moved, g = first_flips(sa, sb, rows, 1, dtype, rows=same)
+                gaps += g
+                same = [b for b in same if moved[b] == 1]
+            check(same and lm_topk_agree(
+                tuple(t[same] for t in got), tuple(t[same] for t in want),
+                dtype, K),
+                  f"{cfg.name} x{LM_CPU_LAYERS}, {dtype}: serve_step step "
+                  f"{step} on the card differs from the CPU (rows {same})")
+            tok = got[1][:, :1]
+        errs += [normwise(caches[0][key][:, same], caches[1][key][:, same])
+                 for key in ("k", "v")]
+        cross[dtype] = max(errs)
+        check(cross[dtype] <= LM_TOL[dtype],
+              f"{cfg.name} x{LM_CPU_LAYERS}, {dtype}: card vs CPU "
+              f"{errs} > {LM_TOL[dtype]}")
+    mesh_rec = moe_mesh_path(dev, cfg2, on_cpu, on_card, prompt) \
+        if cfg.moe else None
+    return cross, flipped, gaps, mesh_rec
+
+
+def moe_mesh_path(dev, cfg2, on_cpu, on_card, prompt) -> dict:
+    """Step 16(c): the 2-layer MoE cut over 4 logical shards of the card
+    as ``("data", "model")`` meshes of ``(1, 4)`` and ``(2, 2)`` — EP
+    (``moe_ffn_ep``) and the vocab-sharded head — against the same calls
+    on a CPU mesh at fp32; the sharded head id for id against the
+    unsharded one on the same hidden state; an EP step's ms beside a
+    non-EP step's (bf16, 16 rows)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe import ep_available
+    c = dataclasses.replace(cfg2, compute_dtype=torch.float32)
+    rows, P, steps, K = LM_MOE_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS, \
+        LM_TOP_K
+    cut = prompt[:rows, :P]
+    rec = {}
+    for shape in LM_MESHES:
+        name = "x".join(map(str, shape))
+        mc = make_mesh(shape, ("data", "model"), [dev] * SHARDS)
+        mh = make_mesh(shape, ("data", "model"), ["cpu"] * SHARDS)
+        check(ep_available(c.n_experts, tf.DEFAULT_RULES, mc),
+              f"{name}: the mesh does not take the EP path")
+        out = {}
+        for side, p, mesh, x in (("card", on_card, mc, cut),
+                                 ("cpu", on_cpu, mh, cut.cpu())):
+            h, pre = tf.prefill(p, x, c, cache_dtype=torch.float32,
+                                mesh=mesh)
+            cache = tf.init_kv_cache(c, rows, P + steps, dtype=torch.float32,
+                                     device=x.device)
+            for key in ("k", "v"):
+                cache[key][:, :, :P] = pre[key]
+            out[side] = {"h": h, "pre": pre, "cache": cache, "mesh": mesh,
+                         "p": p}
+        errs = [normwise(out["card"]["h"], out["cpu"]["h"])] + [
+            normwise(out["card"]["pre"][key], out["cpu"]["pre"][key])
+            for key in ("k", "v")]
+        # the sharded head against the unsharded one on the same state
+        h = out["card"]["h"]
+        sv, si = tf.topk_logits(h, on_card["unembed"], K, mesh=mc)
+        uv, ui = tf.topk_logits(h, on_card["unembed"], K)
+        check(torch.equal(si, ui) and bool(torch.allclose(sv, uv, rtol=RTOL,
+                                                          atol=ATOL)),
+              f"{name}: the sharded head differs from the unsharded one")
+        tok = si[:, :1]
+        for step in range(steps):
+            got, _ = tf.serve_step(on_card, out["card"]["cache"], tok,
+                                   P + step, c, top_k=K + 1, mesh=mc)
+            want, _ = tf.serve_step(on_cpu, out["cpu"]["cache"], tok.cpu(),
+                                    P + step, c, top_k=K + 1, mesh=mh)
+            check(lm_topk_agree(got, want, "float32", K),
+                  f"{name}: EP serve_step step {step} on the card differs "
+                  "from the CPU mesh")
+            tok = got[1][:, :1]
+        errs += [normwise(out["card"]["cache"][key], out["cpu"]["cache"][key])
+                 for key in ("k", "v")]
+        rec[name] = max(errs)
+        check(rec[name] <= LM_TOL["float32"],
+              f"{name}: card mesh vs CPU mesh {errs} > {LM_TOL['float32']}")
+
+    # an EP step beside a non-EP step on the card: bf16, 16 rows
+    cb = dataclasses.replace(cfg2, compute_dtype=torch.bfloat16)
+    served = tf.serving_params(on_card, cb)
+    x = prompt[:, :P]
+    h, pre = tf.prefill(served, x, cb)
+    cache = tf.init_kv_cache(cb, x.shape[0], P + 1, device=dev)
+    for key in ("k", "v"):
+        cache[key][:, :, :P] = pre[key]
+    tok = tf.topk_logits(h, served["unembed"], K)[1][:, :1]
+    mesh = make_mesh(LM_MESHES[0], ("data", "model"), [dev] * SHARDS)
+    ms = {}
+    for label, m in (("non_ep", None), ("ep", mesh), ("non_ep", None),
+                     ("ep", mesh)):
+        times = []
+        for _ in range(LM_MESH_STEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tf.serve_step(served, cache, tok, P, cb, top_k=K, mesh=m)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[label] = float(np.median(times))
+    rec["step_ms"] = ms
+    print(f"lm {cfg2.name} x{LM_CPU_LAYERS} on {SHARDS} logical shards of the "
+          f"card: EP + sharded head vs a CPU mesh, fp32, normwise "
+          f"{ {k: v for k, v in rec.items() if k != 'step_ms'} }; sharded "
+          f"head id for id the unsharded one; a bf16 step of "
+          f"{x.shape[0]} rows: EP on {LM_MESHES[0]} {ms['ep']:.3f} ms, "
+          f"non-EP {ms['non_ep']:.3f} ms (median of {LM_MESH_STEP_REPS}, "
+          f"second of two turns)", flush=True)
+    return rec
+
+
+def scout_cut_path(dev) -> None:
+    """Step 16(d): llama4-scout at full width cut to 2 layers (the
+    48-layer model's 407 GB of fp32 weights do not fit one card): a
+    prefill of 4 x 256 tokens and 8 greedy steps through top-1 routing,
+    GQA 40/8 and the 202,048-word head; finite, descending, the float64
+    witness, and B1-B6 launched 0 times."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import count_params
+    t_phase = time.perf_counter()
+    full = get_arch(SCOUT_ARCH).make_config()
+    check(full.param_count() == SCOUT_PARAMS,
+          f"{SCOUT_ARCH}: param_count {full.param_count()}")
+    cfg = dataclasses.replace(full, n_layers=LM_CPU_LAYERS)
+    B, P, T, K, V = SCOUT_BATCH, SCOUT_PROMPT, SCOUT_STEPS, LM_TOP_K, \
+        cfg.vocab_size
+    prompt = torch.from_numpy(
+        next(lm_batches(SEED, V, B, P))["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    served = tf.serving_params(params, cfg)
+    n = count_params(params)
+    check(n == cfg.param_count(), f"{SCOUT_ARCH} x2: {n} parameters drawn")
+    del params
+    step_ms, aux = [], []
+    cache, fed, outs = lm_decode(served, cfg, prompt, T, K, timed=step_ms,
+                                 moe_aux=aux)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(not any(launches.values()),
+          f"the {SCOUT_ARCH} path launched a kernel {launches}")
+    for vals, ids in outs:
+        check(vals.shape == (B, K) and bool(torch.isfinite(vals).all())
+              and bool((vals[:, :-1] >= vals[:, 1:]).all())
+              and bool(((ids >= 0) & (ids < V)).all()),
+              f"{SCOUT_ARCH}: top-{K} not finite, descending and in range")
+    h_last = tf.decode_hidden(served, cache, fed[-1], P + T - 1, cfg)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    head_ranks = lm_head_witness(h_last, served["unembed"], *outs[-1])
+    check(head_ranks > 0, f"{SCOUT_ARCH}: no rank of the head stood clear")
+    del served, cache
+    torch.cuda.empty_cache()
+    med = float(np.median(step_ms))
+    rec = {"arch": SCOUT_ARCH, "layers": LM_CPU_LAYERS, "params": n,
+           "batch": B, "prompt": P, "steps": T,
+           "prefill_drop_rate": drop_rates(aux[0]),
+           "step_drop_rate_max": max(max(drop_rates(a)) for a in aux[1:]),
+           "step_ms_median": med, "peak_bytes": peak_bytes,
+           "head_ranks_compared": head_ranks, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase,
+           "card": gpu_name_and_power()}
+    print(f"lm {SCOUT_ARCH} x{LM_CPU_LAYERS} ({rec['card']}): {n} "
+          f"parameters; {B} x {P} prefill, {T} steps (median {med:.3f} ms); "
+          f"drop rate prefill {rec['prefill_drop_rate']}, steps max "
+          f"{rec['step_drop_rate_max']:.4f}; head vs float64 witness "
+          f"{head_ranks} of {B * K} ranks id for id; peak "
+          f"{peak_bytes / 2**30:.2f} GiB; phase {rec['phase_s']:.1f} s",
+          flush=True)
+    print("lm scout: " + json.dumps(rec), flush=True)
 
 
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
@@ -2740,7 +3215,11 @@ def run(dev, kind: str) -> None:
     stream_rows = streaming_path(servers, U_all, dev)
     lsm_rows = lsm_async_path(servers, U_all, dev)
     sharded_row = sharded_path(servers, U_all, results, cpu_ctx, dev)
-    lm_path(dev)
+    lm_path(dev, LM_ARCH, LM_PARAMS)
+    torch.cuda.empty_cache()
+    lm_path(dev, MOE_ARCH, MOE_PARAMS)
+    torch.cuda.empty_cache()
+    scout_cut_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())

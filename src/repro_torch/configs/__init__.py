@@ -1,13 +1,14 @@
-"""Registry of the ported architectures: the three dense LMs and the four
-recsys models, each a published configuration with its smoke configuration
-and shape cells. The MoE LMs come with ``moe.py``, the GNN with its
-model."""
+"""Registry of the ported architectures: the five LMs (three dense, two
+MoE) and the four recsys models, each a published configuration with its
+smoke configuration and shape cells. The GNN comes with its model."""
 from repro_torch.configs import (dcn_v2, deepfm, deepseek_67b, dlrm_rm2, fm,
-                                 gemma_2b, stablelm_3b)
+                                 gemma_2b, llama4_scout_17b_a16e, olmoe_1b_7b,
+                                 stablelm_3b)
 from repro_torch.configs.base import ArchSpec
 
 REGISTRY = {spec.arch_id: spec
             for spec in [deepseek_67b.SPEC, gemma_2b.SPEC, stablelm_3b.SPEC,
+                         olmoe_1b_7b.SPEC, llama4_scout_17b_a16e.SPEC,
                          deepfm.SPEC, dcn_v2.SPEC, dlrm_rm2.SPEC, fm.SPEC]}
 
 

@@ -18,9 +18,12 @@ carries the reference's model parameters across as the same tree of
 tensors: the recsys trees (``repro.models.recsys.init_params``: a nested
 dict of arrays with MLP lists of ``{"w", "b"}``) and the LM's
 (``repro.models.transformer.init_params``: ``embed``, ``final_norm``,
-``unembed`` and the ``[L, ...]`` layer stack). Dense weights keep the
-reference's ``[in, out]`` layout (the port applies them as ``x @ w``
-too), so nothing is transposed.
+``unembed`` and the ``[L, ...]`` layer stack, a MoE config's
+``router``/``moe_gate``/``moe_up``/``moe_down`` included), and the
+reference's ``MoEParams`` (``repro.models.moe.init_moe``), which comes
+across as the port's :class:`repro_torch.models.moe.MoEParams`. Dense
+weights keep the reference's ``[in, out]`` layout (the port applies them
+as ``x @ w`` too), so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.core.index import TopKIndex
 from repro_torch.core.layout import ListMajorLayout
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.kernels.ops import MIPSCatalog
+from repro_torch.models.moe import MoEParams
 
 MODEL_FIELDS = frozenset({"targets"})
 INDEX_FIELDS = frozenset(f.name for f in dataclasses.fields(TopKIndex))
@@ -88,7 +92,8 @@ def from_reference(arrays: Mapping[str, Any], device=None, name=None):
 def params_from_reference(params: Any, device=None) -> Any:
     """The reference's parameter tree (nested dicts and lists of numpy
     arrays: the recsys trees, or the LM's with its layers stacked
-    ``[L, ...]``) as the same tree of float32 tensors on ``device``
+    ``[L, ...]``; or a ``MoEParams``) as the same tree of float32 tensors
+    on ``device``
     (``None`` = ``cuda``). A tree the reference cast to bf16 comes across
     with the same values in float32."""
     return _params_to(params, resolve_device(device))
@@ -102,6 +107,8 @@ transformer_params_from_reference = params_from_reference
 def _params_to(node: Any, dev: torch.device) -> Any:
     if isinstance(node, Mapping):
         return {key: _params_to(v, dev) for key, v in node.items()}
+    if getattr(node, "_fields", None) == MoEParams._fields:
+        return MoEParams(*(_params_to(v, dev) for v in node))
     if isinstance(node, (list, tuple)):
         return [_params_to(v, dev) for v in node]
     return torch.tensor(np.asarray(node, np.float32), device=dev)

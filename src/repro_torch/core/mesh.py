@@ -140,6 +140,18 @@ def gather_order(mesh: Mesh, axes: Sequence[str]) -> List[int]:
             for rc in itertools.product(*(range(s) for s in sizes[::-1]))]
 
 
+def take_shards(x: torch.Tensor, shards: Sequence[int], dim: int = 0):
+    """The ``shards`` of ``x`` along ``dim`` (one index each), a view. They
+    must be a contiguous increasing run, as a device's shards are on a
+    mesh whose device list repeats each device in one block; raises
+    ``ValueError`` otherwise."""
+    lo = shards[0]
+    if list(shards) != list(range(lo, lo + len(shards))):
+        raise ValueError(f"shards {list(shards)} of one device are not a "
+                         f"contiguous run")
+    return x.narrow(dim, lo, len(shards))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedArray:
     """An array dealt over a mesh: one ``[S_g, *shard_shape]`` stack of

@@ -1,7 +1,7 @@
-"""Decoder-only LM serving: prefill, the decode step and the exact top-K
-vocab head.
+"""Decoder-only LM serving (dense and MoE): prefill, the decode step, the
+exact top-K vocab head, and the LM's partition specs.
 
-The dense path of the reference's ``models/transformer.py``: parameters
+The serving path of the reference's ``models/transformer.py``: parameters
 are its nested dict of tensors with the layers stacked ``[L, ...]`` (the
 reference's ``init_params``, or its own tree carried across by
 :func:`repro_torch.convert.params_from_reference`), and each
@@ -15,32 +15,53 @@ the parameters' device. Two reads differ in cost, not in value:
   the reference casts it, but :func:`serving_params` casts the layer
   stack once beforehand, which makes every later cast a no-op: at
   gemma-2b's width the per-step cast would read 7.9 GB of fp32 weights
-  and write 4.0 GB of bf16 on every decode step.
+  and write 4.0 GB of bf16 on every decode step (olmoe-1b-7b's experts:
+  26.8 GB read).
 
 :func:`serve_step` writes the new token's keys and values into the cache
 IN PLACE and returns the same cache tensors (the reference returns a new
-cache). The MoE feed-forward, the LM's sharding (``param_specs``,
-``kv_cache_specs``, the vocab-sharded head) and training (``loss_fn``,
-``chunked_xent``) are later slices of the port (ROADMAP A7).
+cache).
+
+A MoE config (``moe=True``) runs :func:`repro_torch.models.moe.moe_ffn`
+in each layer, or with ``moe_ep`` and a mesh whose tp axis divides the
+experts, the expert-parallel :func:`repro_torch.models.moe.moe_ffn_ep`.
+The entry points take the reference's ``rules`` and, where the reference
+reads the ambient mesh, a ``mesh`` keyword (a
+:class:`repro_torch.core.mesh.Mesh`; ``None``, the default, means no
+mesh). The mesh changes values only where the reference's does: the EP
+dispatch (capacity per dp row) and the vocab-sharded head of
+:func:`topk_logits` (the same top-K, merged from the shards'). The
+reference's layout constraints have no counterpart (see
+:mod:`repro_torch.models.common`). ``moe_aux``, a list, collects each MoE
+layer's aux dict (``aux_loss``, ``drop_rate``, ``expert_ids``; tensors,
+read by nobody on the path) for a caller that reports them. Training
+(``loss_fn``, ``chunked_xent``) is a later slice of the port (ROADMAP
+A7.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.mesh import Mesh, shard_groups, take_shards
 from repro_torch.core.naive import stable_topk
 from repro_torch.models.attention import (apply_rope, blocked_attention,
                                           decode_attention)
-from repro_torch.models.common import (ACTIVATIONS, cast_tree, dense_init,
-                                       embed_init, rms_norm)
+from repro_torch.models.common import (ACTIVATIONS, DEFAULT_RULES, MeshRules,
+                                       cast_tree, dense_init, embed_init,
+                                       rms_norm, spec_entry)
 from repro_torch.models.embedding import index_rows
+from repro_torch.models.moe import MoEParams, ep_available, moe_ffn, moe_ffn_ep
 
-# the layer weights that enter a matmul (the norms' scales stay fp32)
-PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# the layer weights that enter a matmul in the compute dtype (the norms'
+# scales stay fp32, and so does the MoE router: moe_ffn routes in fp32)
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "moe_gate", "moe_up", "moe_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +84,7 @@ class TransformerConfig:
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
-    moe_ep: bool = True   # expert-parallel dispatch
+    moe_ep: bool = True   # expert-parallel dispatch under a mesh
     # numerics / memory
     compute_dtype: Any = torch.bfloat16
     remat: bool = True
@@ -106,13 +127,6 @@ class TransformerConfig:
                 + d + d * self.vocab_size)
 
 
-def _dense_only(config: TransformerConfig) -> None:
-    if config.moe:
-        raise NotImplementedError(
-            f"{config.name}: the MoE feed-forward is not ported yet "
-            "(ROADMAP A7, moe.py)")
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -122,8 +136,9 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random fp32 parameters drawn from ``generator``, which must live on
     ``device`` (``None`` = ``cuda``): a full-width model is drawn on the
-    card and never crosses the host."""
-    _dense_only(config)
+    card and never crosses the host. A MoE config's layers hold
+    ``router [L, D, E]``, ``moe_gate``/``moe_up [L, E, D, F]`` and
+    ``moe_down [L, E, F, D]`` in place of the dense FFN."""
     dev = resolve_device(device)
     L, D = config.n_layers, config.d_model
 
@@ -137,10 +152,17 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
         "wk": dense_init(generator, (L, D, config.kv_dim)),
         "wv": dense_init(generator, (L, D, config.kv_dim)),
         "wo": dense_init(generator, (L, config.q_dim, D)),
-        "w_gate": dense_init(generator, (L, D, config.d_ff)),
-        "w_up": dense_init(generator, (L, D, config.d_ff)),
-        "w_down": dense_init(generator, (L, config.d_ff, D)),
     }
+    if config.moe:
+        E, F = config.n_experts, config.moe_d_ff
+        layers["router"] = dense_init(generator, (L, D, E))
+        layers["moe_gate"] = dense_init(generator, (L, E, D, F))
+        layers["moe_up"] = dense_init(generator, (L, E, D, F))
+        layers["moe_down"] = dense_init(generator, (L, E, F, D))
+    else:
+        layers["w_gate"] = dense_init(generator, (L, D, config.d_ff))
+        layers["w_up"] = dense_init(generator, (L, D, config.d_ff))
+        layers["w_down"] = dense_init(generator, (L, config.d_ff, D))
     return {
         "embed": embed_init(generator, (config.vocab_size, D)),
         "layers": layers,
@@ -156,9 +178,41 @@ def serving_params(params: Dict, config: TransformerConfig) -> Dict:
     without the cast. The norms, ``embed`` and ``unembed`` stay as they
     are: the head reads ``unembed`` in fp32."""
     layers = params["layers"]
-    cast = cast_tree({key: layers[key] for key in PROJECTIONS},
-                     config.compute_dtype)
+    cast = cast_tree({key: layers[key] for key in PROJECTIONS
+                      if key in layers}, config.compute_dtype)
     return {**params, "layers": {**layers, **cast}}
+
+
+def param_specs(config: TransformerConfig, rules: MeshRules,
+                mode: str = "train") -> Dict:
+    """Partition specs matching :func:`init_params`, one tuple a tensor
+    (entry for entry the reference's ``PartitionSpec``). ``mode="serve"``
+    drops FSDP (the batch owns the data axis at inference)."""
+    tp = rules.tp
+    fsdp = rules.fsdp if mode == "train" else None
+    layers = {
+        "ln1": (None, None),
+        "ln2": (None, None),
+        "wq": (None, fsdp, tp),
+        "wk": (None, fsdp, tp),
+        "wv": (None, fsdp, tp),
+        "wo": (None, tp, fsdp),
+    }
+    if config.moe:
+        layers["router"] = (None, fsdp, None)
+        layers["moe_gate"] = (None, tp, fsdp, None)
+        layers["moe_up"] = (None, tp, fsdp, None)
+        layers["moe_down"] = (None, tp, None, fsdp)
+    else:
+        layers["w_gate"] = (None, fsdp, tp)
+        layers["w_up"] = (None, fsdp, tp)
+        layers["w_down"] = (None, tp, fsdp)
+    return {
+        "embed": (tp, fsdp),
+        "layers": layers,
+        "final_norm": (None,),
+        "unembed": (fsdp, tp),
+    }
 
 
 def _layer_params(params: Dict, i: int) -> Dict:
@@ -221,21 +275,41 @@ def _attention_block(lp: Dict, x: torch.Tensor, config: TransformerConfig,
     return attn.reshape(B, S, config.q_dim) @ lp["wo"].to(dt)
 
 
-def _ffn_block(lp: Dict, x: torch.Tensor,
-               config: TransformerConfig) -> torch.Tensor:
-    """The dense gated feed-forward of ``x``: ``[B, S, D]``."""
+def _ffn_block(lp: Dict, x: torch.Tensor, config: TransformerConfig,
+               rules: MeshRules, mesh: Optional[Mesh],
+               moe_aux: Optional[List] = None):
+    """The gated feed-forward of ``x [B, S, D]`` (dense, or the MoE's):
+    ``(out [B, S, D], aux_loss)``, ``aux_loss`` 0.0 for a dense layer."""
     dt = config.compute_dtype
     h = rms_norm(x, lp["ln2"], config.norm_eps)
+    if config.moe:
+        params = MoEParams(router=lp["router"], w_gate=lp["moe_gate"],
+                           w_up=lp["moe_up"], w_down=lp["moe_down"])
+        if config.moe_ep and ep_available(config.n_experts, rules, mesh):
+            out, aux = moe_ffn_ep(params, h, config.moe_top_k,
+                                  config.capacity_factor, config.act, rules,
+                                  mesh)
+        else:
+            B, S, D = h.shape
+            out, aux = moe_ffn(params, h.reshape(B * S, D),
+                               config.moe_top_k, config.capacity_factor,
+                               config.act, rules)
+            out = out.reshape(B, S, D)
+        if moe_aux is not None:
+            moe_aux.append(aux)
+        return out, aux["aux_loss"]
     act = ACTIVATIONS[config.act]
     g = h @ lp["w_gate"].to(dt)
     u = h @ lp["w_up"].to(dt)
-    return (act(g) * u) @ lp["w_down"].to(dt)
+    return (act(g) * u) @ lp["w_down"].to(dt), 0.0
 
 
 def _layer(lp: Dict, x: torch.Tensor, config: TransformerConfig,
-           positions: torch.Tensor, kv_cache=None, cache_len=None):
+           positions: torch.Tensor, rules: MeshRules, mesh: Optional[Mesh],
+           kv_cache=None, cache_len=None, moe_aux=None):
     x = x + _attention_block(lp, x, config, positions, kv_cache, cache_len)
-    return x + _ffn_block(lp, x, config)
+    out, aux = _ffn_block(lp, x, config, rules, mesh, moe_aux)
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -243,26 +317,33 @@ def _layer(lp: Dict, x: torch.Tensor, config: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Dict, tokens: torch.Tensor,
-            config: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
+            rules: MeshRules = DEFAULT_RULES, mesh: Optional[Mesh] = None,
+            moe_aux: Optional[List] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward. tokens: ``[B, S]`` -> ``(hidden [B, S, D], aux)``;
-    ``aux`` (the MoE load-balancing loss) is 0 for a dense model."""
-    _dense_only(config)
+    ``aux`` is the MoE load-balancing loss summed over the layers (0 for
+    a dense model), fp32."""
     S = tokens.shape[1]
     x = _embed(params, tokens, config)
     positions = torch.arange(S, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(config.n_layers):
-        x = _layer(_layer_params(params, i), x, config, positions)
+        x, a = _layer(_layer_params(params, i), x, config, positions, rules,
+                      mesh, moe_aux=moe_aux)
+        if config.moe:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def prefill(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
-            cache_dtype: torch.dtype = torch.bfloat16):
+            rules: MeshRules = DEFAULT_RULES,
+            cache_dtype: torch.dtype = torch.bfloat16,
+            mesh: Optional[Mesh] = None, moe_aux: Optional[List] = None):
     """Prompt ingestion: the forward pass that also emits the stacked KV
     cache (``{"k", "v"}: [L, B, S, Hkv, hd]`` in ``cache_dtype``) and
     returns it with the last position's hidden state ``[B, D]``."""
-    _dense_only(config)
     B, S = tokens.shape
     dt = config.compute_dtype
     x = _embed(params, tokens, config)
@@ -276,7 +357,7 @@ def prefill(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
                                  q_positions=positions,
                                  kv_positions=positions)
         x = x + attn.reshape(B, S, config.q_dim) @ lp["wo"].to(dt)
-        x = x + _ffn_block(lp, x, config)
+        x = x + _ffn_block(lp, x, config, rules, mesh, moe_aux)[0]
         ks.append(k.to(cache_dtype))
         vs.append(v.to(cache_dtype))
     x = rms_norm(x, params["final_norm"], config.norm_eps)
@@ -306,45 +387,107 @@ def init_kv_cache(config: TransformerConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def kv_cache_specs(config: TransformerConfig, rules: MeshRules, batch: int,
+                   seq_len: int, mesh: Optional[Mesh] = None) -> Dict:
+    """Partition specs of the cache, ``(None, dp, sp, None, None)``: the
+    batch over dp and the sequence over sp where they divide. When the
+    batch cannot take the data axes (``batch % dp != 0``, e.g. one
+    long-context row), the SEQUENCE takes them in front of sp (context
+    parallelism over data x model)."""
+    dp = sp = None
+    if mesh is not None:
+        sizes = mesh.shape
+        dp_axes = rules.dp_axes(mesh)
+        dp_size = math.prod(sizes[a] for a in dp_axes)
+        dp = dp_axes if (dp_axes and batch % dp_size == 0) else None
+        seq_axes = (rules.sp,) if rules.sp in sizes else ()
+        if dp is None and dp_axes:
+            seq_axes = dp_axes + tuple(a for a in seq_axes
+                                       if a not in dp_axes)
+        seq_size = math.prod(sizes[a] for a in seq_axes)
+        sp = seq_axes if seq_len % seq_size == 0 else None
+        dp, sp = spec_entry(dp or ()), spec_entry(sp or ())
+    spec = (None, dp, sp, None, None)
+    return {"k": spec, "v": spec}
+
+
 def decode_hidden(params: Dict, cache: Dict, tokens: torch.Tensor,
-                  cache_len: int, config: TransformerConfig) -> torch.Tensor:
+                  cache_len: int, config: TransformerConfig,
+                  rules: MeshRules = DEFAULT_RULES,
+                  mesh: Optional[Mesh] = None,
+                  moe_aux: Optional[List] = None) -> torch.Tensor:
     """The decode step of :func:`serve_step` up to its head: tokens
     ``[B, S]`` at positions ``cache_len + [0, S)`` -> the last position's
     hidden state ``[B, D]``. Writes the new keys and values into
     ``cache`` in place."""
-    _dense_only(config)
     cache_len = int(cache_len)
     S = tokens.shape[1]
     x = _embed(params, tokens, config)
     positions = cache_len + torch.arange(S, device=x.device)
     for i in range(config.n_layers):
-        x = _layer(_layer_params(params, i), x, config, positions,
-                   kv_cache=(cache["k"][i], cache["v"][i]),
-                   cache_len=cache_len)
+        x, _ = _layer(_layer_params(params, i), x, config, positions,
+                      rules, mesh, kv_cache=(cache["k"][i], cache["v"][i]),
+                      cache_len=cache_len, moe_aux=moe_aux)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return x[:, -1, :]
 
 
 def serve_step(params: Dict, cache: Dict, tokens: torch.Tensor, cache_len,
-               config: TransformerConfig, top_k: int = 0):
+               config: TransformerConfig, rules: MeshRules = DEFAULT_RULES,
+               top_k: int = 0, mesh: Optional[Mesh] = None,
+               moe_aux: Optional[List] = None):
     """One decode step. tokens: ``[B, 1]``; ``cache_len``: the number of
     positions already in the cache (an int, the same for every row).
     Returns ``(logits-or-topk, cache)``: the ``[B, V]`` logits in
     ``compute_dtype``, or with ``top_k > 0`` the exact top-K ``(values
-    [B, K] fp32, ids [B, K] int32)`` of :func:`topk_logits`. The cache is
-    written in place and returned as the same tensors."""
-    hidden = decode_hidden(params, cache, tokens, cache_len, config)
+    [B, K] fp32, ids [B, K] int32)`` of :func:`topk_logits` (over
+    ``mesh``, when one is given). The cache is written in place and
+    returned as the same tensors."""
+    hidden = decode_hidden(params, cache, tokens, cache_len, config, rules,
+                           mesh, moe_aux)
     if top_k <= 0:
         return logits_from_hidden(params, hidden, config), cache
-    return topk_logits(hidden, params["unembed"], top_k), cache
+    return topk_logits(hidden, params["unembed"], top_k, rules, mesh), cache
 
 
-def topk_logits(hidden: torch.Tensor, unembed: torch.Tensor, k: int):
+def topk_logits(hidden: torch.Tensor, unembed: torch.Tensor, k: int,
+                rules: MeshRules = DEFAULT_RULES,
+                mesh: Optional[Mesh] = None):
     """Exact top-K over the vocab: the SEP-LR head, with the vocabulary as
-    the catalogue. One fp32 product of ``hidden [B, D]`` with ``unembed
-    [D, V]``, then a stable top-``k`` (equal logits rank the lower id
-    first, as ``lax.top_k`` ranks them). Returns ``(values [B, k] fp32,
-    ids [B, k] int32)``."""
-    logits = hidden.float() @ unembed.float()
-    vals, idx = stable_topk(logits, k)
-    return vals, idx.to(torch.int32)
+    the catalogue. Returns ``(values [B, k] fp32, ids [B, k] int32)``;
+    equal logits rank the lower id first, as ``lax.top_k`` ranks them.
+
+    Without a mesh whose tp axis divides ``V``: one fp32 product of
+    ``hidden [B, D]`` with ``unembed [D, V]``, then a stable top-``k``.
+    Otherwise the vocab is split into tp shards of ``v_local`` columns
+    (the distributed merge of :mod:`repro_torch.core.sharded`): each
+    shard's fp32 product and its stable top-``min(k, v_local)``, its ids
+    offset by ``shard * v_local``, the shards' candidates concatenated in
+    shard order and a final stable top-``k``. A device's shards, which
+    must be a contiguous run (``ValueError`` otherwise), are one batched
+    product."""
+    tp = rules.tp
+    V = unembed.shape[1]
+    if mesh is None or tp not in mesh.axis_names \
+            or V % mesh.shape[tp] != 0:
+        logits = hidden.float() @ unembed.float()
+        vals, idx = stable_topk(logits, k)
+        return vals, idx.to(torch.int32)
+    n = mesh.shape[tp]
+    v_local = V // n
+    w = unembed.reshape(unembed.shape[0], n, v_local)
+    lead = hidden.device
+    vals: List[Optional[torch.Tensor]] = [None] * n
+    ids: List[Optional[torch.Tensor]] = [None] * n
+    for g in shard_groups(mesh, (tp,)):
+        js = list(g.shards)
+        w_g = take_shards(w, js, dim=1).to(g.device).float().permute(
+            1, 0, 2)                                            # [J, D, v]
+        logits = hidden.to(g.device).float() @ w_g             # [J, B, v]
+        v_g, i_g = stable_topk(logits, min(k, v_local))
+        i_g = i_g + torch.tensor(js, device=g.device)[:, None, None] \
+            * v_local
+        for jj, j in enumerate(js):
+            vals[j], ids[j] = v_g[jj].to(lead), i_g[jj].to(lead)
+    fvals, pos = stable_topk(torch.cat(vals, dim=1), k)
+    return fvals, torch.gather(torch.cat(ids, dim=1), 1, pos).to(torch.int32)

@@ -1,7 +1,10 @@
 """The ``topk_mips``, ``gather_scores``, ``embedding_bag`` and
 ``fm_interaction`` CUDA kernels against their plain PyTorch versions, on
 the card, and the engines and server paths that launch them (``ta``,
-``auto``, the admission ladder) against the same paths on the CPU. These
+``auto``, the admission ladder) against the same paths on the CPU; and
+the MoE feed-forward (``moe_ffn``, ``moe_ffn_ep`` on card meshes of
+logical shards) and the LM's top-K head (unsharded and vocab-sharded),
+which run no kernel, on the card against the CPU. These
 tests need a CUDA device (the kernels have no CPU mode) and skip with a
 reason where there is none; the file
 imports no jax, so it also runs where only PyTorch is installed:
@@ -20,7 +23,14 @@ float16 both versions sum in fp32 and round the output once, so they may
 differ by one float16 ulp (at most 2**-10 relative): they are held to 2e-3
 relative plus 1e-3 of the case's largest finite value (for outputs that
 cancel to near zero), far inside the reference's 5e-2, so a wrong scale
-or an output of zeros fails."""
+or an output of zeros fails. The MoE runs are held at fp32 to 1e-5
+relative plus 1e-4 absolute (cuBLAS against the CPU's GEMMs, TF32 off)
+and at bf16 to 3% of the largest value (``tests/test_torch_moe.py``'s
+``BF16_TOL``), with the same experts chosen and drop rates within 1e-6
+(fp32 rounding of ``1 -`` a sum of kept shares; one assignment moves the
+rate by 1/384); the
+head's values to 1e-5 relative plus 1e-4 absolute and its ids id for
+id."""
 
 import numpy as np
 import pytest
@@ -812,3 +822,92 @@ def test_async_stress_concurrent_mutations_on_the_card():
                  and set(res.indices[0].tolist()) == set(og[q].tolist())
                  for ov, og in oracles)
         assert ok, f"query {q}: a result of no state the catalogue had"
+
+
+MOE_BF16_TOL = 3e-2
+
+
+def _need_card_to_compare():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (holds the card's run against the "
+                    "CPU's)")
+
+
+def _moe_case(dtype):
+    from repro_torch.models import moe
+    rng = np.random.default_rng(11)
+    p = moe.init_moe(torch.Generator().manual_seed(3), 64, 96, 16, "cpu")
+    h = torch.from_numpy(rng.standard_normal((4, 24, 64)).astype(
+        np.float32)).to(dtype)
+    return moe, p, h
+
+
+def _moe_close(got, want, dtype):
+    got, want = got.float().cpu(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=MOE_BF16_TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_the_cpu(dtype):
+    """``moe_ffn`` (top-4 of 16, a capacity that drops some tokens) and
+    ``moe_ffn_ep`` on card meshes of 4 logical shards, ``(1, 4)`` and
+    ``(2, 2)`` over ``("data", "model")``, against the same calls on the
+    CPU."""
+    _need_card_to_compare()
+    from repro_torch.core.mesh import make_mesh
+    moe, p, h = _moe_case(dtype)
+    dev = torch.device("cuda")
+    pc = moe.MoEParams(*(t.to(dev) for t in p))
+    want, want_aux = moe.moe_ffn(p, h.reshape(-1, 64), 4, 1.0)
+    got, aux = moe.moe_ffn(pc, h.reshape(-1, 64).to(dev), 4, 1.0)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    _moe_close(got, want, dtype)
+    assert torch.equal(aux["expert_ids"].cpu(), want_aux["expert_ids"])
+    assert float(want_aux["drop_rate"]) > 0
+    # the same kept count (one assignment is 1/384 of the rate); the mean's
+    # last bits are the reduction order's
+    torch.testing.assert_close(aux["drop_rate"].cpu(), want_aux["drop_rate"],
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(aux["aux_loss"].cpu(), want_aux["aux_loss"],
+                               rtol=1e-5, atol=0)
+    for shape in ((1, 4), (2, 2)):
+        cpu = make_mesh(shape, ("data", "model"), ["cpu"] * 4)
+        card = make_mesh(shape, ("data", "model"), ["cuda"] * 4)
+        want, want_aux = moe.moe_ffn_ep(p, h, 4, 1.0, mesh=cpu)
+        got, aux = moe.moe_ffn_ep(pc, h.to(dev), 4, 1.0, mesh=card)
+        _moe_close(got, want, dtype)
+        assert torch.equal(aux["expert_ids"].cpu(), want_aux["expert_ids"])
+        torch.testing.assert_close(aux["drop_rate"].cpu(),
+                                   want_aux["drop_rate"], rtol=0, atol=1e-6)
+
+
+def test_topk_logits_on_the_card_matches_the_cpu():
+    """The head, unsharded and over card meshes whose tp axis splits the
+    vocab (and one that does not divide it: the fallback), against the
+    CPU's, and sharded against unsharded id for id on the card."""
+    _need_card_to_compare()
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(12)
+    h = torch.from_numpy(rng.standard_normal((16, 256)).astype(np.float32))
+    dev = torch.device("cuda")
+    for V in (50304, 50302):
+        w = torch.from_numpy(rng.standard_normal((256, V)).astype(
+            np.float32))
+        hc, wc = h.to(dev), w.to(dev)
+        want = transformer.topk_logits(h, w, 8)
+        flat = transformer.topk_logits(hc, wc, 8)
+        torch.testing.assert_close(flat[0].cpu(), want[0], rtol=1e-5,
+                                   atol=1e-4)
+        assert torch.equal(flat[1].cpu(), want[1])
+        for shape in ((1, 4), (2, 2)):
+            card = make_mesh(shape, ("data", "model"), ["cuda"] * 4)
+            vals, ids = transformer.topk_logits(hc, wc, 8, mesh=card)
+            assert ids.dtype == torch.int32 and ids.device.type == "cuda"
+            torch.testing.assert_close(vals.cpu(), want[0], rtol=1e-5,
+                                       atol=1e-4)
+            assert torch.equal(ids, flat[1])

@@ -1,7 +1,9 @@
-"""Parity of the port's dense LM serving path with the JAX reference, on
-the CPU: RoPE, blocked and decode attention, ``rms_norm``, ``forward``,
-``prefill``, ``serve_step`` with and without the exact top-K head, the
-cache clamp, parameter counts, the LM configs and ``lm_batches``.
+"""Parity of the port's LM serving path (dense and MoE, without a mesh;
+the mesh cases are ``tests/test_torch_moe.py``'s) with the JAX reference,
+on the CPU: RoPE, blocked and decode attention, ``rms_norm``,
+``forward`` (with the MoE configs' summed aux loss), ``prefill``,
+``serve_step`` with and without the exact top-K head, the cache clamp,
+parameter counts, the five LM configs and ``lm_batches``.
 
 The reference's parameters (``init_params`` with ``PRNGKey(0)``) cross to
 the port through ``convert.transformer_params_from_reference``, so both
@@ -23,7 +25,12 @@ decode attention compute in fp32 in both packages and round to bf16 at the
 same points: at bf16 they came out identical, and are held within
 ``BF16_ONCE``, 2**-9 of the largest magnitude (half a bf16 ulp of it).
 Decode scores taken in bf16, where the reference takes them in fp32, miss
-that by 1.5-2x (0.30-0.41% measured).
+that by 1.5-2x (0.30-0.41% measured). The MoE smoke configs route every
+token to the same experts in both packages at both dtypes here (checked
+through ``moe_aux``), so they are held to the same tolerances; their
+aux loss is within 1e-5 relative at fp32 and ``BF16_TOL`` relative at
+bf16 (the router's probabilities come from hidden states that differ by
+bf16 roundings).
 """
 
 import dataclasses
@@ -112,6 +119,59 @@ def _params(ref_cfg):
     host_params = jax.tree_util.tree_map(np.asarray, ref_params)
     return ref_params, transformer_params_from_reference(host_params,
                                                          device="cpu")
+
+
+def _first_flips(stats, ref_params, ref_cfg, prompt, dtype):
+    """Where the port's ``forward`` routed a token to another expert set
+    than the reference's: each row's first such position (``S`` where
+    none). (Two near-equal experts swapped in rank leave the set, and the
+    output up to summation order, as they are.)
+
+    The reference's routing is recomputed layer by layer over its own
+    residual stream (its ``_attention_block``, ``rms_norm`` and fp32
+    router top-k). At fp32 every token must route alike. At bf16 the two
+    packages' FFN inputs differ by bf16 roundings, so a token whose k-th
+    and (k+1)-th router logits stand within ``BF16_TOL`` of its largest
+    may flip; each row's first flip must be such a near-tie, and at least
+    half of the positions must precede their row's first flip. A flip
+    changes its token's hidden state, and through attention every later
+    position's, so the caller compares positions before it only (and the
+    last position's hidden state of rows without a flip: llama4's smoke
+    config at bf16 flips both rows at position 30, on logit gaps of 0.007
+    and 0.004, so its prefill's last state is compared at fp32 only)."""
+    assert len(stats) == ref_cfg.n_layers
+    Bp, Sp = prompt.shape
+    k = ref_cfg.moe_top_k
+    dt = ref_cfg.compute_dtype
+    x = ref_params["embed"].astype(dt)[jnp.asarray(prompt)]
+    positions = jnp.arange(Sp)
+    first = np.full(Bp, Sp)
+    for i, aux in enumerate(stats):
+        lp = jax.tree_util.tree_map(lambda a: a[i], ref_params["layers"])
+        attn, _ = ref_tf._attention_block(lp, x, ref_cfg, ref_tf.MeshRules(),
+                                          positions)
+        x = x + attn
+        h = ref_rms_norm(x, lp["ln2"], ref_cfg.norm_eps)
+        logits = np.asarray(h.reshape(-1, h.shape[-1]).astype(jnp.float32)
+                            @ lp["router"])
+        _, ids = jax.lax.top_k(jax.nn.softmax(logits, -1), k)
+        flip = (np.sort(host(aux["expert_ids"]), -1)
+                != np.sort(np.asarray(ids), -1)).any(-1)
+        flip = flip.reshape(Bp, Sp)
+        if dtype == "float32":
+            assert not flip.any(), f"layer {i}: a token routed otherwise"
+        top = -np.sort(-logits, axis=-1)[:, :k + 1].reshape(Bp, Sp, k + 1)
+        near = (-np.diff(top, axis=-1)).min(-1) \
+            <= BF16_TOL * np.abs(top).max(-1)
+        for b in range(Bp):
+            hit = np.flatnonzero(flip[b])
+            if hit.size and hit[0] < first[b]:
+                assert near[b, hit[0]], (i, b, hit[0])
+                first[b] = hit[0]
+        ffn, _ = ref_tf._ffn_block(lp, x, ref_cfg, ref_tf.MeshRules())
+        x = x + ffn
+    assert first.sum() >= Bp * Sp / 2
+    return [int(f) for f in first]
 
 
 def _tokens(vocab, shape, seed=0):
@@ -215,7 +275,7 @@ def _fields(cfg):
             if f.name != "compute_dtype"}
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL_LM)
 def test_lm_configs_equal_the_reference(arch_id):
     spec, ref = get_arch(arch_id), ref_get_arch(arch_id)
     assert (spec.family, spec.source) == (ref.family, ref.source)
@@ -231,26 +291,35 @@ def test_lm_configs_equal_the_reference(arch_id):
 
 
 def test_registry_holds_the_dense_lms():
-    assert {a for a, s in REGISTRY.items() if s.family == "lm"} == set(DENSE)
+    """The registry holds the five LMs: the three dense ones and the two
+    MoE ones, with the reference's full-config counts."""
+    lms = {a for a, s in REGISTRY.items() if s.family == "lm"}
+    assert set(DENSE) <= lms and lms == set(ALL_LM)
     assert get_arch("gemma-2b").make_config().param_count() == 3_030_460_416
+    olmoe = get_arch("olmoe-1b-7b").make_config()
+    assert (olmoe.param_count(), olmoe.active_param_count()) == \
+        (6_919_096_320, 1_281_951_744)
+    scout = get_arch("llama4-scout-17b-a16e").make_config()
+    assert (scout.param_count(), scout.active_param_count()) == \
+        (101_730_063_360, 11_133_096_960)
 
 
 @pytest.mark.parametrize("arch_id", ALL_LM)
 def test_param_count_matches_reference(arch_id):
-    """Full and smoke configs of all five LMs, the MoE ones as the
-    reference defines them (their configs come with ``moe.py``)."""
+    """Full and smoke configs of all five LMs; the smoke config's drawn
+    parameters count what ``param_count`` says, MoE layers included."""
     ref = ref_get_arch(arch_id)
     for make in ("make_config", "make_smoke_config"):
         ref_cfg = getattr(ref, make)()
         cfg = transformer.TransformerConfig(**_fields(ref_cfg))
         assert cfg.param_count() == ref_cfg.param_count()
         assert cfg.active_param_count() == ref_cfg.active_param_count()
-        if cfg.moe:
-            with pytest.raises(NotImplementedError, match="A7"):
-                transformer.init_params(cfg, torch.Generator(), "cpu")
+    params = transformer.init_params(cfg, torch.Generator(), "cpu")
+    assert count_params(params) == cfg.param_count()
+    assert ("router" in params["layers"]) == cfg.moe
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL_LM)
 def test_init_params_counts_and_layout(arch_id):
     cfg = get_arch(arch_id).make_smoke_config()
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
@@ -263,6 +332,10 @@ def test_init_params_counts_and_layout(arch_id):
     assert jax.tree_util.tree_map(lambda t: tuple(t.shape), params) == shapes
     served = transformer.serving_params(params, cfg)
     assert served["layers"]["wq"].dtype == torch.bfloat16
+    if cfg.moe:   # the experts cast once; the router stays fp32
+        for key in ("moe_gate", "moe_up", "moe_down"):
+            assert served["layers"][key].dtype == torch.bfloat16
+        assert served["layers"]["router"] is params["layers"]["router"]
     for key in ("ln1", "ln2"):
         assert served["layers"][key] is params["layers"][key]
     assert served["unembed"] is params["unembed"]
@@ -287,10 +360,11 @@ def test_lm_batches_are_the_reference_stream():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL_LM)
 def test_model_matches_reference(arch_id, dtype):
     """``forward``, ``prefill`` and two ``serve_step``s (the top-K head,
-    then the plain logits) over the same parameters and tokens."""
+    then the plain logits) over the same parameters and tokens; for a
+    MoE config also ``forward``'s aux loss and every layer's experts."""
     ref_cfg, cfg = _configs(arch_id, dtype)
     ref_params, params = _params(ref_cfg)
     served = transformer.serving_params(params, cfg)
@@ -298,24 +372,42 @@ def test_model_matches_reference(arch_id, dtype):
     toks = _tokens(cfg.vocab_size, (B, S + 2))
     prompt, nxt = toks[:, :S], toks[:, S:]
 
-    want_h, _ = jax.jit(functools.partial(ref_tf.forward, config=ref_cfg))(
+    want_h, want_aux = jax.jit(functools.partial(ref_tf.forward,
+                                                 config=ref_cfg))(
         ref_params, jnp.asarray(prompt))
-    got_h, aux = transformer.forward(params, torch.from_numpy(prompt), cfg)
-    assert got_h.dtype == tdt and float(aux) == 0.0
-    _close(got_h, want_h, dtype)
+    stats = []
+    got_h, aux = transformer.forward(params, torch.from_numpy(prompt), cfg,
+                                     moe_aux=stats)
+    assert got_h.dtype == tdt
+    if cfg.moe:
+        np.testing.assert_allclose(
+            float(aux), float(want_aux),
+            rtol=RTOL if dtype == "float32" else BF16_TOL)
+        first = _first_flips(stats, ref_params, ref_cfg, prompt, dtype)
+    else:
+        assert float(aux) == 0.0 and not stats
+        first = [S] * B
+    # positions before a row's first routing flip see none (causal)
+    for b, f in enumerate(first):
+        _close(got_h[b, :f], np.asarray(want_h, np.float32)[b, :f], dtype)
+    clean = [b for b, f in enumerate(first) if f == S]
 
     want_last, want_c = jax.jit(functools.partial(
         ref_tf.prefill, config=ref_cfg, cache_dtype=cdt))(
             ref_params, jnp.asarray(prompt))
     got_last, got_c = transformer.prefill(served, torch.from_numpy(prompt),
                                           cfg, cache_dtype=tdt)
-    _close(got_last, want_last, dtype)
+    if clean:
+        _close(got_last[clean], np.asarray(want_last, np.float32)[clean],
+               dtype)
     for key in ("k", "v"):
         assert got_c[key].dtype == tdt
-        _close(got_c[key], want_c[key], dtype)
+        for b, f in enumerate(first):
+            _close(got_c[key][:, b, :f],
+                   np.asarray(want_c[key], np.float32)[:, b, :f], dtype)
 
     # decode from the reference's prefill cache, so both steps start from
-    # one state
+    # one state (a row with a routing flip in its prompt too)
     ref_cache = {key: jnp.zeros((cfg.n_layers, B, S + 4) + c.shape[3:], cdt)
                  .at[:, :, :S].set(c) for key, c in want_c.items()}
     cache = {key: torch.from_numpy(np.asarray(c, np.float32)).to(tdt)
@@ -399,12 +491,18 @@ def test_topk_logits_ties_go_to_the_lower_id():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL_LM)
 def test_decode_path_matches_forward(arch_id, dtype):
     """The port against itself: ``prefill`` of a prompt, then t greedy
     ``serve_step``s, gives at the last position the hidden state of
-    ``forward`` over the whole sequence. The head runs no kernel."""
+    ``forward`` over the whole sequence. The head runs no kernel. A MoE
+    config runs drop-free (``capacity_factor = E / top_k``: an expert's
+    capacity is every token), because a decode step's capacity (its few
+    tokens) is not the forward's and capacity decides what drops."""
     _, cfg = _configs(arch_id, dtype)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.moe_top_k)
     tdt = DTYPES[dtype][0]
     params = transformer.serving_params(transformer.init_params(
         cfg, torch.Generator().manual_seed(1), device="cpu"), cfg)
@@ -421,6 +519,9 @@ def test_decode_path_matches_forward(arch_id, dtype):
         seq.append(tok)
         h = transformer.decode_hidden(params, cache, tok, 30 + step, cfg)
         tok = transformer.topk_logits(h, params["unembed"], 8)[1][:, :1]
-    want, _ = transformer.forward(params, torch.cat(seq, dim=1), cfg)
+    stats = []
+    want, _ = transformer.forward(params, torch.cat(seq, dim=1), cfg,
+                                  moe_aux=stats)
     _close(h, host(want[:, -1].float()), dtype)
+    assert all(float(a["drop_rate"]) == 0.0 for a in stats)
     assert topk_mips.launches == before
