@@ -45,7 +45,8 @@ checkout. In order, it
    with ``naive``, that its tail launched ``gather_scores`` on the
    LSHTC-like run, and that the same engine on the CPU (the kernels'
    plain versions) gives the first 4 LSHTC-like queries the same values,
-   ids, ``n_scored`` and ``depth``;
+   ids, ``n_scored`` and ``depth``; profiles one LSHTC-like ``bta``
+   chunk (device activity only);
 7. drives the ``ta`` path (the paper's Threshold Algorithm, 32 rounds a
    step) — ``TopKServer.query(method="ta")`` over the same batches (of
    the LSHTC-like queries only the first 64: one chunk), then one
@@ -76,7 +77,33 @@ checkout. In order, it
    tail on B4) and ``TwoStageRanker``'s full-model re-rank to the top 5,
    counted, and holds B4 against its plain version on the retrieval's
    first tail block (R = 10, ids ``[64, 2,560]``), timed;
-9. drives ``auto`` — ``TopKServer.query(method="auto")`` over the 256
+9. the recsys training path at DeepFM's full published width (random
+   weights from SEED drawn on the card; 429,498,611 parameters, 1.72 GB)
+   at the published ``train_batch`` of 65,536, with the B5 and B6
+   counters set to 0 just before each counted part and read just after:
+   (b) the first batch's gradient of every parameter leaf through the
+   kernels (B5 and B6 in the forward, their plain-PyTorch backward) and
+   through their plain versions on the card, within ``TRAIN_GRAD_TOL``
+   normwise, B5 and B6 launched once; (c) the same gradient on the
+   batch's first 4,096 examples on the card and on the CPU (the
+   parameters copied across), within ``TRAIN_GRAD_TOL`` normwise;
+   (a) a ``Trainer`` over ``PrefetchLoader(recsys_batches(SEED, ...))``
+   with the launcher's AdamW (lr 3e-3, warmup 10, cosine to the run's 8
+   steps) runs 8 steps: every loss finite, B5 and B6 launched once a
+   step; (d) a run checkpointing every 4 steps (keep 1) into a temporary
+   directory, preempted at step 6 (``SimulatedPreemption``), then a fresh
+   ``Trainer`` resumed from step 4 to step 8: parameters and both moments
+   bitwise equal to (a)'s, its losses of steps 5-8 equal to (a)'s (the
+   step-4 save's host snapshot and write and the resume's restore
+   timed);
+   (e) it prints the step's median ms (steps 2-8) against its byte
+   bound (``train_bounds``), peak memory, the checkpoint's seconds and
+   bytes, and one profiled step (busy share, launches, time by kernel),
+   with the card's name and power limit; (f) holds B5 (the first-order
+   sum at d = 1) and B6 at the training batch against their plain
+   versions, timed from a cold L2 with ``F.embedding_bag`` beside B5:
+   two rows of the kernels line, their launches (a)'s;
+10. drives ``auto`` — ``TopKServer.query(method="auto")`` over the 256
    queries of each catalogue, a 64-query request a chunk, on the servers
    whose warmup primed every engine per sign bucket — with the counters
    read around each request; checks that each chunk ran the candidate
@@ -86,7 +113,7 @@ checkout. In order, it
    with ``naive``, and that a context without a cost table (the cold
    route) picks on the card what the same catalogue picks on the CPU,
    with ``norm`` read as ``topk_mips``;
-10. drives the admission ladder at LSHTC-like: a server with
+11. drives the admission ladder at LSHTC-like: a server with
     ``AdmissionPolicy(degrade_budget=64)`` warmed with ``budgets=(64,)``
     (``bta`` and ``norm``), each rung forced through ``_cost_ewma`` —
     ``to_norm`` (exact, equal to ``naive``), ``to_budgeted`` (its
@@ -96,13 +123,13 @@ checkout. In order, it
     twice a measured ``topk_mips`` chunk, printing the rung it took, its
     latency and ``req_p50_us``; the rungs run the ``norm`` scan, which
     has no kernel;
-11. drives the host oracles through a card context: Table 1's toy
+12. drives the host oracles through a card context: Table 1's toy
     (Fagin at depth 5 scoring 9 items, TA after 2 rounds scoring 5, best
     item 5), then 16 queries on the paper's MovieLens-1M stand-in (3,952
     x 50) through ``fagin``, ``partial`` and ``ta``: equal values, and
     ``partial``'s ``n_scored`` equal to ``ta``'s query for query, with
     each one's host time;
-12. the streaming tier at LSHTC-like: a ``TopKServer`` with
+13. the streaming tier at LSHTC-like: a ``TopKServer`` with
     ``delta_capacity`` 256 warmed for ``topk_mips``, then, with the
     counters set to 0 just before and read just after, 64-query requests
     between mutation batches — pristine, 200 inserts, 50 updates, 100
@@ -123,12 +150,12 @@ checkout. In order, it
     (timed, with ``torch.topk`` over the full product) and B4 at the
     ``bta`` chunk's first tail block (timed): two rows of the kernels
     line;
-13. the LSM ladder behind the async front end at LSHTC-like: an
+14. the LSM ladder behind the async front end at LSHTC-like: an
     ``AsyncTopKServer(max_batch=64, flush_ms=2, method="topk_mips",
     delta_capacity=256, n_shards=8)`` (8 L1 runs of 1,024 rows) warmed
     for ``topk_mips`` and ``norm`` at every bucket; then, with the
     counters set to 0 just before and read just after, bursts of 8 client
-    threads x 32 single queries (query 0 then 5 times more, cache hits)
+    threads x 16 single queries (query 0 then 5 times more, cache hits)
     between mutation rounds of 256 inserts, 16 deletes (8 L1-run rows, 8
     base rows of query 0's top 138) and 16 updates (L1-run rows) on the
     card's catalogue and a CPU ``ShardedLsmCatalogue``, until the tier
@@ -153,7 +180,7 @@ checkout. In order, it
     the coalesced batch's shape (B = 8, k = 42) and B4 at the ``bta``
     micro-batch's first tail block against their plain versions, timed:
     two rows of the kernels line;
-14. the sharded slice at LSHTC-like, with the counters set to 0 just
+15. the sharded slice at LSHTC-like, with the counters set to 0 just
     before and read just after: (a) one 64-query chunk through
     ``TopKServer.query(method="norm_sharded")`` on the default mesh (one
     shard on the one card), exact against ``naive`` and with ``n_scored``
@@ -171,7 +198,7 @@ checkout. In order, it
     in 4: a row of the kernels line; and, timed too, at the first step a
     64-query micro-batch would give it (256 lanes). It prints the
     phase's seconds;
-15. the dense LM serving path at gemma-2b's full width and depth (18
+16. the dense LM serving path at gemma-2b's full width and depth (18
     layers, d_model 2,048, MQA 8/1 at head_dim 256, GeGLU d_ff 16,384,
     vocab 256,000; 3,030,460,416 random parameters drawn on the card from
     SEED, the layer stack cast to bf16 once by ``serving_params``), with
@@ -194,14 +221,14 @@ checkout. In order, it
     decode step's median ms and tokens/s beside its byte bound, peak
     memory and the phase's seconds, with the card's name and power
     limit;
-16. the MoE LM serving path, after gemma-2b's tensors are freed, with
+17. the MoE LM serving path, after gemma-2b's tensors are freed, with
     every kernel count set to 0 just before and read just after each
     part (each must stay 0: the MoE dispatch and the head are plain
     PyTorch): (a) olmoe-1b-7b at full width and depth (16 layers,
     d_model 2,048, 16 heads, 64 experts top-8, moe_d_ff 1,024, vocab
     50,304; 6,919,096,320 random parameters drawn on the card, the layer
     stack and the experts cast to bf16 once; the router stays fp32)
-    served as step 15 serves gemma-2b — 16 x 1,024 prompt tokens
+    served as step 16 serves gemma-2b — 16 x 1,024 prompt tokens
     prefilled (timed twice), 32 greedy ``serve_step(top_k=8)`` — checked
     the same way (finite, in range, the float64 witness), with each
     layer's drop rate at the prefill (capacity 2,560) and the steps
@@ -233,7 +260,7 @@ checkout. In order, it
     descending and held against the float64 witness. It prints ``lm
     ...``/``lm: {json}`` lines for olmoe (drop rates, EP and non-EP step
     ms, the mesh errors) and ``lm scout: {json}``;
-17. prints one ``{"kernels": [...]}`` line and, last, the device line
+18. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -241,6 +268,7 @@ Any failed phase exits non-zero without the device line.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -308,6 +336,17 @@ F16_RTOL, F16_ATOL_OF_MAX = 2e-3, 1e-3
 # table) and the query tower (mean over the embedding table)
 B5_CALLS = {"embedding_bag[sum,d=1]": ("linear d=1", "sum"),
             "embedding_bag[mean,d=10]": ("embed d=10", "mean")}
+# The recsys training phase: DeepFM at full width and its published
+# train_batch; the launcher's AdamW over 8 steps; checkpoints every 4
+# steps (keep 1) and a preemption at step 6; the card-vs-CPU gradient on
+# the first 4,096 examples. Gradients are held normwise (||got - want|| /
+# ||want||, a leaf at a time) to TRAIN_GRAD_TOL: the same fp32 sums in
+# other orders (a kernel against its plain version, the card against the
+# CPU), about 1e-7.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 10
+TRAIN_CPU_EXAMPLES = 4096
+TRAIN_GRAD_TOL = 1e-5
 # The streaming phase: the server's delta capacity, the k its escalation
 # ladder reaches at K = 10 (k + 4 * 128, past the kernel's shared-memory
 # carry of 256), and the most requests timed during the background build
@@ -315,13 +354,15 @@ STREAM_DELTA = 256
 STREAM_LADDER_K = 522
 STREAM_DURING_MAX = 64
 # The LSM ladder behind the async front end: 8 L1 runs of the default
-# 4 x 256 rows; bursts of 8 client threads x 32 single queries; rounds of
+# 4 x 256 rows; bursts of 8 client threads x 16 single queries (the first
+# LSM_BURST LSHTC-like queries: cut from 32 a thread for time); rounds of
 # 256 inserts, 16 deletes (8 in L1 runs, 8 base rows of query 0's top 138)
 # and 16 updates (of L1 rows) until the tier promotes; the round whose
 # fold fails, the round after which one bta micro-batch runs over the L1
 # tier, and the round whose burst races a mutation batch
 LSM_SHARDS = 8
 LSM_CLIENTS = 8
+LSM_BURST = 128
 LSM_HOT_REPEATS = 5
 LSM_INSERTS, LSM_DELETES, LSM_UPDATES = 256, 16, 16
 LSM_TOP = 138
@@ -1099,6 +1140,350 @@ def recsys_path(dev):
     ]
 
 
+def train_bounds(cfg, B: int, distinct: int) -> dict:
+    """The least time of one training step of batch ``B`` whose ids reach
+    ``distinct`` rows: bytes each input once and each output once over
+    the HBM rate, against the fp32 operations of the MLP's products (one
+    in the forward, two in the backward). The bytes: AdamW reads the
+    parameters, the gradient and both moments and writes the parameters
+    and both moments (every leaf is dense, the embedding's too: 7 x the
+    parameters' bytes); the dense gradient is zeroed (its bytes once
+    more) and the distinct rows scattered into it; the ids and labels are
+    read, and the distinct embedding and linear rows gathered once. That
+    is the bound of a step with a materialised dense gradient, as the
+    port's and the reference's are; ``fused_bytes_ms`` is the floor of
+    one that folds the sparse gradient into the optimizer: 6 passes
+    (read and write the parameters and both moments) and the rows."""
+    p_bytes = 4 * cfg.param_count()
+    rows = 4 * distinct * (cfg.embed_dim + 1)
+    io_bytes = 2 * rows + 4 * B * (cfg.n_sparse + 1)
+    step_bytes = 8 * p_bytes + io_bytes
+    dims = (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp_dims + (1,)
+    ops = 6 * B * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    bytes_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP32_FLOPS_PER_S
+    return {"step_bytes": step_bytes, "param_bytes": p_bytes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "fused_bytes_ms":
+            1e3 * (6 * p_bytes + io_bytes) / HBM_BYTES_PER_S,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def train_path(dev) -> list:
+    """Step 9 of the module docstring. Returns the kernels line's rows of
+    B5 (the first-order sum at d = 1) and B6 on the training path."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.configs import get_arch
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    from repro_torch.kernels.fm_interaction import (fm_interaction,
+                                                    fm_interaction_plain)
+    from repro_torch.models import recsys
+    from repro_torch.models.embedding import embedding_lookup
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import (SimulatedPreemption, Trainer,
+                                           TrainerConfig)
+    from repro_torch.train.tree import (path_key, tree_flatten_with_path,
+                                        tree_leaves, tree_unflatten)
+
+    t_phase = time.perf_counter()
+    spec = get_arch(RECSYS_ARCH)
+    cfg = spec.make_config()
+    B = spec.shape("train_batch").dims["batch"]
+    opt = OptimizerConfig(kind="adamw", lr=TRAIN_LR,
+                          warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return recsys.init_params(cfg, gen, device=dev)
+
+    def stream():
+        return recsys_batches(SEED, cfg.n_dense, cfg.n_sparse,
+                              cfg.vocab_per_field, B)
+
+    def loss(p, b):
+        return recsys.loss_fn(p, b, cfg)
+
+    def grads(params, batch):
+        """The loss's gradient, path key -> tensor."""
+        flat = tree_flatten_with_path(params)
+        leaves = [x.detach().requires_grad_() for _, x in flat]
+        value, _ = recsys.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+        return dict(zip((path_key(p) for p, _ in flat),
+                        torch.autograd.grad(value, leaves)))
+
+    def worst(got, want):
+        errs = {key: normwise(got[key], want[key]) for key in want}
+        return max(errs.values()), errs
+
+    @contextlib.contextmanager
+    def indexed(taken=None):
+        """``forward`` over plain advanced indexing and the plain B6: the
+        field lookup and the first-order bag read ``table[ids]``, whose
+        gradient is PyTorch's own scatter, not ``row_grad``. With a dict
+        ``taken``, the gathered rows are detached leaves stored there
+        (``"embed"`` ``[B, F, d]``, ``"linear"`` ``[B, F, 1]``)."""
+        def rows(key, table, ids):
+            got = table[ids.long()]
+            if taken is not None:
+                got = taken[key] = got.detach().requires_grad_()
+            return got
+
+        saved = (recsys.embedding_lookup, recsys.embedding_bag,
+                 recsys.fm_interaction)
+        recsys.embedding_lookup = lambda t, i: rows("embed", t, i)
+        recsys.embedding_bag = lambda t, i, mode: rows("linear", t, i).sum(1)
+        recsys.fm_interaction = fm_interaction_plain
+        try:
+            yield
+        finally:
+            (recsys.embedding_lookup, recsys.embedding_bag,
+             recsys.fm_interaction) = saved
+
+    def scatter_witness(params, batch):
+        """The ``embed`` and ``linear`` gradients summed in float64 on the
+        CPU by ``index_add_`` from the loss's gradient at each gathered
+        row: a witness of the tables' scatter independent of
+        ``row_grad``."""
+        taken = {}
+        with indexed(taken):
+            value, _ = recsys.loss_fn(params, batch, cfg)
+        ids = recsys._sparse_ids(params, batch, cfg).reshape(-1).long()
+        out = {}
+        for key, g in zip(taken, torch.autograd.grad(value,
+                                                     list(taken.values()))):
+            table = params[key]
+            g = g.reshape(ids.numel(), -1)
+            w = torch.zeros((table.shape[0], g.shape[1]),
+                            dtype=torch.float64)
+            out[key] = w.index_add_(0, ids.cpu(),
+                                    g.double().cpu()).reshape(table.shape)
+        return out
+
+    first = next(stream())
+    batch = {key: torch.from_numpy(v).to(dev) for key, v in first.items()}
+
+    # -- (b) the gradient through the kernels and through the plain versions
+    params = fresh()
+    torch.cuda.synchronize()
+    zero_counters()
+    g_kernel = grads(params, batch)
+    torch.cuda.synchronize()
+    grad_launches = read_counters()
+    check(grad_launches["embedding_bag"] == 1
+          and grad_launches["fm_interaction"] == 1,
+          f"one gradient launched B5/B6 {grad_launches}, not once each")
+    with indexed():
+        g_plain = grads(params, batch)
+    err_plain, errs = worst(g_kernel, g_plain)
+    print(f"train: gradient through the kernels vs the plain versions "
+          f"over advanced indexing on the card, normwise by leaf: "
+          f"{json.dumps(errs)}", flush=True)
+    check(err_plain <= TRAIN_GRAD_TOL,
+          f"the kernel path's gradient differs from the plain path's "
+          f"({err_plain:.3g} normwise)")
+    del g_kernel, g_plain
+
+    # -- (c) the card against the CPU on the first examples -----------------
+    n = TRAIN_CPU_EXAMPLES
+    t0 = time.perf_counter()
+    g_card = grads(params, {key: v[:n] for key, v in batch.items()})
+    cpu_params = tree_to(params, "cpu")
+    cpu_batch = {key: torch.from_numpy(v[:n]) for key, v in first.items()}
+    g_cpu = grads(cpu_params, cpu_batch)
+    err_cpu, errs = worst(g_card, g_cpu)
+    print(f"train: gradient on the card vs the CPU, first {n} examples, "
+          f"normwise by leaf ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(errs)}", flush=True)
+    check(err_cpu <= TRAIN_GRAD_TOL,
+          f"the card's gradient differs from the CPU's ({err_cpu:.3g} "
+          f"normwise)")
+    witness = scatter_witness(cpu_params, cpu_batch)
+    err_witness = {f"{side} {key}": normwise(g[key], w)
+                   for key, w in witness.items()
+                   for side, g in (("card", g_card), ("cpu", g_cpu))}
+    print(f"train: the tables' gradients vs a float64 index_add_ witness, "
+          f"first {n} examples, normwise: {json.dumps(err_witness)}",
+          flush=True)
+    check(max(err_witness.values()) <= TRAIN_GRAD_TOL,
+          f"the tables' gradients differ from the float64 witness "
+          f"{err_witness}")
+    del g_card, g_cpu, params, cpu_params, witness
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        print(f"train: checkpoints under a temporary directory with "
+              f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free",
+              flush=True)
+        # -- (a) eight steps through Trainer, counted ----------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full = Trainer(loss, fresh(), opt, PrefetchLoader(stream),
+                       TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                     ckpt_every=TRAIN_STEPS + 1))
+        zero_counters()
+        t0 = time.perf_counter()
+        full.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        full.data.close()
+        losses = [h["loss"] for h in full.history]
+        check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+              f"training losses not finite: {losses}")
+        check(launches["embedding_bag"] == TRAIN_STEPS
+              and launches["fm_interaction"] == TRAIN_STEPS,
+              f"{TRAIN_STEPS} steps launched B5/B6 {launches}, not once a "
+              f"step each")
+        step_ms = [1e3 * h["step_time"] for h in full.history]
+
+        # -- (d) preempted at step 6, resumed from step 4 ------------------
+        ck = os.path.join(tmp, "ckpt")
+        cfg_ck = dict(total_steps=TRAIN_STEPS, log_every=1,
+                      ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ck, keep_ckpts=1)
+        io_s = {"save": [], "restore": []}
+
+        def timed(kind, fn):
+            """``fn`` recording its (start, end) host times in io_s."""
+            def call(*args, **kw):
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                io_s[kind].append((t, time.perf_counter()))
+                return out
+            return call
+
+        cut = Trainer(loss, fresh(), opt, PrefetchLoader(stream),
+                      TrainerConfig(fail_at_step=TRAIN_FAIL_AT, **cfg_ck))
+        cut.manager.save = timed("save", cut.manager.save)
+        t0 = time.perf_counter()
+        try:
+            cut.run()
+            fail(f"no preemption at step {TRAIN_FAIL_AT}")
+        except SimulatedPreemption:
+            pass
+        cut.manager.wait()      # the step-4 write the preemption left
+        t_written = time.perf_counter()
+        cut.data.close()
+        cut_s = t_written - t0
+        (s0, s1), = io_s["save"]
+        snapshot_s, write_s = s1 - s0, t_written - s1
+        check(cut.manager.list_steps() == [TRAIN_CKPT_EVERY],
+              f"checkpoints after the preemption: {cut.manager.list_steps()}")
+        del cut
+        resumed = Trainer(loss, fresh(), opt, PrefetchLoader(stream),
+                          TrainerConfig(**cfg_ck))
+        resumed.manager.restore = timed("restore", resumed.manager.restore)
+        t0 = time.perf_counter()
+        resumed.run()
+        resume_s = time.perf_counter() - t0
+        resumed.data.close()
+        check(resumed.step == TRAIN_STEPS and
+              resumed.history[0]["step"] == TRAIN_CKPT_EVERY + 1,
+              "the resumed run did not start from the step-4 checkpoint")
+        state = {"params": resumed.params, "opt": resumed.opt_state}
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(state),
+            tree_leaves({"params": full.params, "opt": full.opt_state}))),
+              "the resumed run's parameters and moments are not bitwise "
+              "those of the uninterrupted run")
+        check([h["loss"] for h in resumed.history] ==
+              losses[TRAIN_CKPT_EVERY:],
+              "the resumed run's losses differ from the uninterrupted run's")
+        check(resumed.manager.list_steps() == [TRAIN_STEPS],
+              f"checkpoints kept: {resumed.manager.list_steps()}")
+        (r0, r1), = io_s["restore"]
+        restore_s = r1 - r0
+        with open(os.path.join(ck, f"step_{TRAIN_STEPS:010d}",
+                               "manifest.json")) as f:
+            ck_bytes = json.load(f)["nbytes"]
+        del resumed, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (e) the step against its bound, one step profiled ------------------
+    ids = table_ids(cfg, batch)
+    distinct = int(torch.unique(ids).numel())
+    bounds = train_bounds(cfg, B, distinct)
+    med = float(np.median(step_ms[1:]))
+    gpu = gpu_name_and_power()
+    print(f"train {cfg.name} at {gpu}: {TRAIN_STEPS} steps of {B} examples "
+          f"in {run_s:.1f} s, losses {[round(x, 6) for x in losses]}; step "
+          f"ms median of steps 2-{TRAIN_STEPS} {med:.3f} (all "
+          f"{[round(x, 3) for x in step_ms]}), {B / med * 1e3:.0f} "
+          f"examples/s; byte bound with a materialised dense gradient "
+          f"{bounds['bytes_ms']:.3f} ms ({bounds['step_bytes'] / 1e9:.3f} "
+          f"GB; {bounds['fused_bytes_ms']:.3f} ms with the sparse gradient "
+          f"folded into the optimizer), operations "
+          f"{bounds['ops_ms']:.3f} ms: {med / bounds['bound_ms']:.1f}x the "
+          f"bound; peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"train: checkpoint {ck_bytes / 1e9:.3f} GB: the step-4 save's "
+          f"host snapshot {snapshot_s:.2f} s (the step waits for it), its "
+          f"write on the writer thread done {write_s:.2f} s after it "
+          f"(overlapping steps 5-6); the resumed run's restore "
+          f"{restore_s:.2f} s; the preempted run {cut_s:.1f} s, the resumed "
+          f"run {resume_s:.1f} s", flush=True)
+    print("train: " + json.dumps({
+        "step_ms_median": med, "step_ms": step_ms, "bound_ms":
+        bounds["bound_ms"], "bytes_ms": bounds["bytes_ms"], "ops_ms":
+        bounds["ops_ms"], "step_bytes": bounds["step_bytes"],
+        "peak_bytes": peak, "ckpt_bytes": ck_bytes, "snapshot_s":
+        snapshot_s, "write_s": write_s, "restore_s": restore_s, "grad_err_plain": err_plain,
+        "grad_err_cpu": err_cpu, "grad_err_witness": err_witness,
+        "fused_bytes_ms": bounds["fused_bytes_ms"], "launches": launches}),
+          flush=True)
+    profile_call("one DeepFM training step", lambda: full.train_step(
+        full.params, full.opt_state, batch),
+                 {"B5 embedding_bag_*_kernel": "embedding_bag_",
+                  "B6 fm_interaction_kernel": "fm_interaction_kernel"})
+
+    # -- (f) B5 and B6 at the training batch, timed -------------------------
+    params = full.params
+    T = params["linear"][:, None]
+    emb = embedding_lookup(params["embed"], ids)
+    got, want = embedding_bag(T, ids, "sum"), embedding_bag_plain(T, ids)
+    torch.cuda.synchronize()
+    e5 = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+          f"B5 at the training batch differs from its plain version ({e5})")
+    got, want = fm_interaction(emb), fm_interaction_plain(emb)
+    torch.cuda.synchronize()
+    e6 = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+          f"B6 at the training batch differs from its plain version ({e6})")
+    F = cfg.n_sparse
+    b5 = {"ms": timed_ms_cold(lambda: embedding_bag(T, ids, "sum"), 20),
+          "plain_ms": timed_ms_cold(lambda: embedding_bag_plain(T, ids), 3),
+          "library_ms": timed_ms_cold(
+              lambda: tnf.embedding_bag(ids, T, mode="sum"), 20)}
+    b5["bound_ms"], b5["bound_by"] = bound(4 * (B * F + distinct + B), B * F)
+    b6 = {"ms": timed_ms_cold(lambda: fm_interaction(emb), 20),
+          "plain_ms": timed_ms_cold(lambda: fm_interaction_plain(emb), 3),
+          "library_ms": None}
+    b6["bound_ms"], b6["bound_by"] = bound(4 * (emb.numel() + B),
+                                           3 * emb.numel())
+    for name, rec in (("B5 sum d=1", b5), ("B6", b6)):
+        print(f"  train {name} at {B}: " + " ".join(
+            f"{key}={rec[key]:.4g}" for key in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms")
+            if rec[key] is not None) + f" ({rec['bound_by']})", flush=True)
+    print(f"train phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [{"name": f"{name}[train{label}]", "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": err, **rec}
+            for name, label, err, rec in (
+                ("embedding_bag", ",sum,d=1", e5, b5),
+                ("fm_interaction", "", e6, b6))]
+
+
 def ta_path(servers, U_all, results, bta_depth, cpu_ctx) -> dict:
     """Step 7 of the module docstring. ``results`` holds the ``naive``
     results of the served batches, ``bta_depth`` the LSHTC-like ``bta``
@@ -1240,7 +1625,7 @@ def agrees_with(got, want) -> bool:
 
 
 def auto_path(servers, U_all, results, cpu_ctxs) -> None:
-    """Step 9 of the module docstring. ``results`` holds the ``naive``
+    """Step 10 of the module docstring. ``results`` holds the ``naive``
     results of the served batches, ``cpu_ctxs`` each catalogue on the
     CPU."""
     import numpy as np
@@ -1323,7 +1708,7 @@ def auto_path(servers, U_all, results, cpu_ctxs) -> None:
 
 
 def ladder_path(servers, U_all, results, dev) -> None:
-    """Step 10 of the module docstring."""
+    """Step 11 of the module docstring."""
     import numpy as np
     from repro_torch.serving.server import (AdmissionPolicy, ServeStats,
                                             TopKServer)
@@ -1416,7 +1801,7 @@ def ladder_path(servers, U_all, results, dev) -> None:
 
 
 def streaming_path(servers, U_all, dev):
-    """Step 12 of the module docstring. Returns the two rows of the
+    """Step 13 of the module docstring. Returns the two rows of the
     kernels line it adds (B1 at ``k = 522``, B4 at this phase's ``bta``
     tail block)."""
     import dataclasses
@@ -1659,7 +2044,7 @@ def streaming_path(servers, U_all, dev):
 
 
 def lsm_async_path(servers, U_all, dev):
-    """Step 13 of the module docstring. Returns the two rows of the
+    """Step 14 of the module docstring. Returns the two rows of the
     kernels line it adds (B1 at the coalesced batch's shape, B4 at the
     ``bta`` micro-batch's first tail block)."""
     import dataclasses
@@ -1676,7 +2061,7 @@ def lsm_async_path(servers, U_all, dev):
     base = servers[LSH]
     T_host = base.ctx.targets.cpu().numpy()
     M, r = T_host.shape
-    U = U_all[LSH]
+    U = U_all[LSH][:LSM_BURST]
     n_q = U.shape[0]
     U_dev = torch.from_numpy(U).to(dev)
     rng = np.random.default_rng(SEED + 21)
@@ -2050,7 +2435,7 @@ def lsm_async_path(servers, U_all, dev):
 
 
 def oracle_path(dev) -> None:
-    """Step 11 of the module docstring."""
+    """Step 12 of the module docstring."""
     import numpy as np
     import torch
     from repro_torch.configs.seplr_paper import CF_DATASETS
@@ -2314,8 +2699,8 @@ def lm_bounds(cfg, B: int, P: int, T: int, prefill_kept=None,
 
 
 def lm_path(dev, arch: str, n_params: int) -> None:
-    """The LM serving phase of ``arch`` at full width and depth: step 15
-    of the module docstring for gemma-2b, step 16's (a) and (b) for
+    """The LM serving phase of ``arch`` at full width and depth: step 16
+    of the module docstring for gemma-2b, step 17's (a) and (b) for
     olmoe-1b-7b, whose (c) it runs on its 2-layer cut."""
     import dataclasses
     import numpy as np
@@ -2620,7 +3005,7 @@ def lm_cut(dev, cfg, prompt):
 
 
 def moe_mesh_path(dev, cfg2, on_cpu, on_card, prompt) -> dict:
-    """Step 16(c): the 2-layer MoE cut over 4 logical shards of the card
+    """Step 17(c): the 2-layer MoE cut over 4 logical shards of the card
     as ``("data", "model")`` meshes of ``(1, 4)`` and ``(2, 2)`` — EP
     (``moe_ffn_ep``) and the vocab-sharded head — against the same calls
     on a CPU mesh at fp32; the sharded head id for id against the
@@ -2713,7 +3098,7 @@ def moe_mesh_path(dev, cfg2, on_cpu, on_card, prompt) -> dict:
 
 
 def scout_cut_path(dev) -> None:
-    """Step 16(d): llama4-scout at full width cut to 2 layers (the
+    """Step 17(d): llama4-scout at full width cut to 2 layers (the
     48-layer model's 407 GB of fp32 weights do not fit one card): a
     prefill of 4 x 256 tokens and 8 greedy steps through top-1 routing,
     GQA 40/8 and the 202,048-word head; finite, descending, the float64
@@ -2780,7 +3165,7 @@ def scout_cut_path(dev) -> None:
 
 
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
-    """Step 14 of the module docstring. ``results`` holds the LSHTC-like
+    """Step 15 of the module docstring. ``results`` holds the LSHTC-like
     ``naive`` and ``norm`` runs of the main path; ``cpu_ctx`` is a CPU
     context over the same catalogue and index. Returns B4's row of the
     kernels line."""
@@ -3195,13 +3580,16 @@ def run(dev, kind: str) -> None:
           f"{bta_path_launches}) "
           f"topk_mips launches={topk_mips.launches} in {bta_seconds:.1f} s; "
           f"peak device memory={peak_bytes / 2**20:.1f} MiB", flush=True)
+    # device activity only: the chunk's ~300 steps of host-side operator
+    # events took ~26 s to post-process (cut for the script's time)
     profile_call(f"one {BATCH}-query {lsh} bta chunk",
                  lambda: servers[lsh].query(U_all[lsh][:BATCH], K),
-                 {"B4 gather_scores_*_kernel": "gather_scores_"})
+                 {"B4 gather_scores_*_kernel": "gather_scores_"}, cpu=False)
 
     # -- the ta path, counted -------------------------------------------------
     ta_row = ta_path(servers, U_all, results, card.depth, cpu_ctx)
     recsys_rows = recsys_path(dev)
+    train_rows = train_path(dev)
 
     # -- auto, the admission ladder and the host oracles ---------------------
     bc_index = servers[bc].ctx.index
@@ -3247,6 +3635,7 @@ def run(dev, kind: str) -> None:
                bta_path_launches["rows"], b4_err),
         ta_row]
     kernels["kernels"].extend(recsys_rows)
+    kernels["kernels"].extend(train_rows)
     kernels["kernels"].extend(stream_rows)
     kernels["kernels"].extend(lsm_rows)
     kernels["kernels"].append(sharded_row)

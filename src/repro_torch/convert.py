@@ -24,6 +24,8 @@ reference's ``MoEParams`` (``repro.models.moe.init_moe``), which comes
 across as the port's :class:`repro_torch.models.moe.MoEParams`. Dense
 weights keep the reference's ``[in, out]`` layout (the port applies them
 as ``x @ w`` too), so nothing is transposed.
+:func:`opt_state_from_reference` carries the reference's optimizer state
+across, so both packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from repro_torch.core.layout import ListMajorLayout
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.models.moe import MoEParams
+from repro_torch.train.optimizer import OptState
 
 MODEL_FIELDS = frozenset({"targets"})
 INDEX_FIELDS = frozenset(f.name for f in dataclasses.fields(TopKIndex))
@@ -102,6 +105,19 @@ def params_from_reference(params: Any, device=None) -> Any:
 # the names each model family's callers use
 recsys_params_from_reference = params_from_reference
 transformer_params_from_reference = params_from_reference
+
+
+def opt_state_from_reference(state: Any, device=None) -> OptState:
+    """The reference's optimizer state (``repro.train.optimizer.OptState``:
+    ``step``, then the ``mu`` and ``nu`` trees, as numpy arrays) as the
+    port's :class:`repro_torch.train.optimizer.OptState` on ``device``
+    (``None`` = ``cuda``): the step a 0-d int32 tensor, the moments float32
+    trees of the parameters' structure (Adagrad's and SGD's ``nu`` 0-d
+    leaves)."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return OptState(torch.tensor(np.asarray(step, np.int32), device=dev),
+                    _params_to(mu, dev), _params_to(nu, dev))
 
 
 def _params_to(node: Any, dev: torch.device) -> Any:

@@ -22,6 +22,19 @@ the Pallas grid and slices the result back; that padding and the
 ``block_b``/``interpret`` knobs are Pallas details the port leaves out.
 :func:`embedding_bag` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches ``csrc/embedding_bag.cu`` or raises.
+
+**Gradients.** :func:`embedding_bag` and :func:`take_rows` are
+``torch.autograd.Function`` objects whose forward is what they compute above
+(the kernel on the card) and whose backward is the closed form in plain
+PyTorch on either device, :func:`row_grad`: the output gradient of each
+(bag, field) scattered into a dense ``[V, d]`` table gradient (divided by
+``F`` in mean mode), an id in ``[-V, 0)`` at ``V + id``, an id outside
+``[-V, V)`` adding nothing, as ``jax.grad`` of ``jnp.take`` scatters.
+The reference has no backward kernel either: it differentiates its jnp
+``take``. The scatter is deterministic: a stable sort of the rows, then a
+segmented sum in a fixed order, where ``index_add_`` and the backward of
+advanced indexing may add duplicate rows with atomics in an order that
+changes from run to run on the card.
 """
 
 from __future__ import annotations
@@ -78,15 +91,70 @@ def _check(table: torch.Tensor, ids: torch.Tensor, mode: str) -> None:
         raise ValueError("table and ids must be on one device")
 
 
-def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with ``jnp.take``'s semantics: negative ids in
-    ``[-V, 0)`` count from the end, other out-of-range ids give NaN rows.
-    Never indexes out of range."""
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     V = table.shape[0]
     row = torch.where(ids < 0, ids + V, ids)
     valid = (row >= 0) & (row < V)
     rows = table[torch.where(valid, row, torch.zeros_like(row)).long()]
     return rows.masked_fill_(~valid[..., None], float("nan"))
+
+
+def row_grad(ids: torch.Tensor, V: int, src: torch.Tensor,
+             per: int) -> torch.Tensor:
+    """The dense ``[V, d]`` float32 sum, over every position ``n`` of the
+    flat ``ids [N]``, of ``src[n // per]`` (``src [N // per, d]``) into
+    row ``ids[n]`` (``V + id`` for an id in ``[-V, 0)``; an id outside
+    ``[-V, V)`` adds nothing). Deterministic on every device: the rows
+    are sorted stably, and each run of equal rows is summed by a
+    segmented doubling scan (``ceil(log2)`` of the longest run of
+    elementwise steps, each adding the partial sum ``s`` places back
+    within the run), whose order of additions depends on the ids alone."""
+    d = src.shape[-1]
+    row = ids.reshape(-1).long()
+    row = torch.where(row < 0, row + V, row)
+    row = torch.where((row >= 0) & (row < V), row, V)   # V: a sink row
+    keys, order = torch.sort(row, stable=True)
+    vals = src.float()[order // per]                      # [N, d]
+    n = keys.numel()
+    out = torch.zeros((V + 1, d), dtype=torch.float32, device=src.device)
+    if n == 0:
+        return out[:V]
+    pos = torch.arange(n, device=keys.device)
+    new = torch.ones(n, dtype=torch.bool, device=keys.device)
+    new[1:] = keys[1:] != keys[:-1]
+    # each position's place in its run: minus its run's first position
+    rank = pos - pos[new][torch.cumsum(new, 0) - 1]
+    longest, s = int(rank.max()) + 1, 1
+    while s < longest:
+        vals[s:] += torch.where((rank[s:] >= s)[:, None], vals[:-s], 0.0)
+        s *= 2
+    last = torch.ones(n, dtype=torch.bool, device=keys.device)
+    last[:-1] = new[1:]
+    out[keys[last]] = vals[last]
+    return out[:V]
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.V = table.shape[0]
+        return _take(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        d = grad.shape[-1]
+        return (row_grad(ids, ctx.V, grad.reshape(-1, d), 1).to(grad.dtype),
+                None)
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with ``jnp.take``'s semantics: negative ids in
+    ``[-V, 0)`` count from the end, other out-of-range ids give NaN rows.
+    Never indexes out of range. Its gradient is :func:`row_grad`'s
+    deterministic scatter."""
+    return _TakeRows.apply(table, ids)
 
 
 def embedding_bag_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -100,15 +168,46 @@ def embedding_bag_plain(table: torch.Tensor, ids: torch.Tensor,
     return acc.to(table.dtype)
 
 
+def embedding_bag_backward(grad: torch.Tensor, ids: torch.Tensor, V: int,
+                           mode: str) -> torch.Tensor:
+    """The table's float32 gradient ``[V, d]`` from the bags' ``grad
+    [B, d]``: each bag's gradient (over ``F`` in mean mode) into the rows
+    of its ids, by :func:`row_grad`."""
+    g = grad.float()
+    if mode == "mean":
+        g = g / ids.shape[1]
+    return row_grad(ids, V, g, ids.shape[1])
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mode):
+        ctx.save_for_backward(ids)
+        ctx.V, ctx.mode = table.shape[0], mode
+        return _launch(table, ids, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        return (embedding_bag_backward(grad, ids, ctx.V, ctx.mode)
+                .to(grad.dtype), None, None)
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
-    """Per-bag sum or mean of table rows (see the module docstring).
+    """Per-bag sum or mean of table rows (see the module docstring),
+    differentiable in ``table`` through :func:`embedding_bag_backward`.
 
     CPU tensors run :func:`embedding_bag_plain`; CUDA tensors launch the
     kernel on the current stream (``embedding_bag.launches`` counts
     launches) and raise on anything the kernel does not take.
     """
     _check(table, ids, mode)
+    return _EmbeddingBag.apply(table, ids, mode)
+
+
+def _launch(table: torch.Tensor, ids: torch.Tensor,
+            mode: str) -> torch.Tensor:
     if table.device.type == "cpu":
         return embedding_bag_plain(table, ids, mode)
     if table.device.type != "cuda":

@@ -17,6 +17,13 @@ the Pallas grid and slices the result back; that padding and the
 ``block_b``/``interpret`` knobs are Pallas details the port leaves out.
 :func:`fm_interaction` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches ``csrc/fm_interaction.cu`` or raises.
+
+**Gradient.** :func:`fm_interaction` is a ``torch.autograd.Function``
+whose forward is the above (the kernel on the card) and whose backward is
+the closed form in plain PyTorch on either device,
+:func:`fm_interaction_backward`: ``dL/demb[b, f, :] = g[b] * (s[b, :] -
+emb[b, f, :])``, ``s`` the field sum. The reference has no backward kernel
+either: it differentiates its jnp ``fm_interaction``.
 """
 
 from __future__ import annotations
@@ -45,15 +52,40 @@ def fm_interaction_plain(emb: torch.Tensor) -> torch.Tensor:
     return (0.5 * (s * s - sq).sum(dim=-1)).to(emb.dtype)
 
 
+def fm_interaction_backward(emb: torch.Tensor,
+                            grad: torch.Tensor) -> torch.Tensor:
+    """``emb``'s gradient ``[B, F, d]`` from the output's ``grad [B]``,
+    ``g[b] * (s[b] - emb[b, f])`` in float32, in ``emb``'s dtype."""
+    v = emb.float()
+    s = v.sum(dim=1, keepdim=True)
+    return (grad.float()[:, None, None] * (s - v)).to(emb.dtype)
+
+
+class _FMInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb):
+        ctx.save_for_backward(emb)
+        return _launch(emb)
+
+    @staticmethod
+    def backward(ctx, grad):
+        emb, = ctx.saved_tensors
+        return fm_interaction_backward(emb, grad)
+
+
 def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     """FM sum-square interaction, ``[B, F, d] -> [B]`` (see the module
-    docstring).
+    docstring), differentiable through :func:`fm_interaction_backward`.
 
     CPU tensors run :func:`fm_interaction_plain`; CUDA tensors launch the
     kernel on the current stream (``fm_interaction.launches`` counts
     launches) and raise on anything the kernel does not take.
     """
     _check(emb)
+    return _FMInteraction.apply(emb)
+
+
+def _launch(emb: torch.Tensor) -> torch.Tensor:
     if emb.device.type == "cpu":
         return fm_interaction_plain(emb)
     if emb.device.type != "cuda":

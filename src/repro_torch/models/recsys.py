@@ -19,10 +19,16 @@ and the first-order term and the query tower's field mean launch kernel
 B5 (:mod:`repro_torch.kernels.embedding_bag`); on CPU tensors both take
 their plain versions. DCN-v2 and DLRM run no kernel of their own.
 
+Training: :func:`loss_fn` is the reference's stable BCE-with-logits and
+accuracy over :func:`forward` (the batch adds ``"label": [B]``). The
+kernels stay in the forward on the card; their gradients are plain
+PyTorch behind ``torch.autograd.Function`` (B5's and the field lookup's a
+deterministic scatter into a dense table gradient, B6's the closed form),
+so a training step differentiates every parameter on either device.
+:func:`param_specs` gives the reference's partition specs.
+
 Retrieval goes through the SEP-LR top-K core: the query tower output is
-u(x), the candidate item table is T — the paper's model class. The
-reference's ``param_specs`` (sharding) and ``loss_fn`` (training) belong to
-later slices of the port.
+u(x), the candidate item table is T — the paper's model class.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.ops import embedding_bag, fm_interaction
-from repro_torch.models.common import dense_init, mlp_apply, mlp_params
+from repro_torch.models.common import (MeshRules, dense_init, mlp_apply,
+                                      mlp_params)
 from repro_torch.models.embedding import embedding_lookup
+
 
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
@@ -129,6 +137,33 @@ def init_params(config: RecsysConfig, generator: torch.Generator,
     return params
 
 
+def param_specs(config: RecsysConfig, rules: MeshRules,
+                mode: str = "train") -> Dict:
+    """Partition specs matching :func:`init_params`, one tuple a tensor
+    (entry for entry the reference's ``PartitionSpec``): embedding rows
+    over tp (DLRM row-parallel), the MLPs replicated (tiny). ``mode`` is
+    the reference's, read by no branch."""
+    tp = rules.tp
+    specs: Dict = {"embed": (tp, None)}
+
+    def mlp(n):
+        return [{"w": (None, None), "b": (None,)} for _ in range(n)]
+
+    if config.arch in ("fm", "deepfm"):
+        specs["linear"] = (tp,)
+        specs["bias"] = ()
+    if config.arch == "deepfm":
+        specs["deep"] = mlp(len(config.mlp_dims) + 1)
+    if config.arch == "dcn_v2":
+        specs["cross_w"] = (None, None, None)
+        specs["cross_b"] = (None, None)
+        specs["deep"] = mlp(len(config.mlp_dims) + 1)
+    if config.arch == "dlrm":
+        specs["bot"] = mlp(len(config.bot_mlp))
+        specs["top"] = mlp(len(config.top_mlp))
+    return specs
+
+
 def _field_offsets(config: RecsysConfig, device) -> torch.Tensor:
     return (torch.arange(config.n_sparse, dtype=torch.int32, device=device)
             * config.vocab_per_field)
@@ -176,7 +211,7 @@ def cross_layer(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Forward per architecture
+# Forward and loss per architecture
 # ---------------------------------------------------------------------------
 
 
@@ -204,6 +239,23 @@ def forward(params: Dict, batch: Dict, config: RecsysConfig) -> torch.Tensor:
         z = torch.cat([bot, dot_interaction(vectors)], dim=-1)
         return mlp_apply(params["top"], z)[:, 0]
     raise ValueError(config.arch)
+
+
+def loss_fn(params: Dict, batch: Dict,
+            config: RecsysConfig) -> Tuple[torch.Tensor, Dict]:
+    """Mean binary cross-entropy of :func:`forward`'s logits against
+    ``batch["label"]`` (the stable form ``max(z, 0) - z y + log1p(exp(-|z|))``)
+    and the accuracy of ``z > 0`` against ``y > 0.5``: ``(loss, {"bce",
+    "acc"})``, 0-d float32 tensors."""
+    logits = forward(params, batch, config)
+    y = torch.as_tensor(batch["label"], device=logits.device).float()
+    # jax's subgradients at a logit of exactly 0 (a ReLU tower's output
+    # can be): max splits the tie (0.5), |z| takes +1
+    absz = torch.where(logits >= 0, logits, -logits)
+    loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-absz)))
+    acc = torch.mean(((logits > 0) == (y > 0.5)).float())
+    return loss, {"bce": loss, "acc": acc}
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,15 @@ and at bf16 to 3% of the largest value (``tests/test_torch_moe.py``'s
 (fp32 rounding of ``1 -`` a sum of kept shares; one assignment moves the
 rate by 1/384); the
 head's values to 1e-5 relative plus 1e-4 absolute and its ids id for
-id."""
+id. The recsys training path's gradients (B5's, the field lookup's and
+B6's backward passes, plain PyTorch behind the kernels' forward, and a
+DeepFM training step) are held to the CPU's at 1e-5 relative plus 1e-6
+absolute (the same algorithm; fp32 sums in other orders), the table
+gradients also to a float64 sum within a pairwise sum's rounding (rows
+that zipf ids reach thousands of times: a fixed relative tolerance does
+not bound such sums in another order), and two identical backward passes
+or steps on the card must be bitwise equal: the table gradient's scatter
+is a stable sort and a segmented sum in a fixed order, with no atomics."""
 
 import numpy as np
 import pytest
@@ -911,3 +919,161 @@ def test_topk_logits_on_the_card_matches_the_cpu():
             torch.testing.assert_close(vals.cpu(), want[0], rtol=1e-5,
                                        atol=1e-4)
             assert torch.equal(ids, flat[1])
+
+
+# ---------------------------------------------------------------------------
+# The recsys training path: gradients through B5 and B6
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+
+
+def _zipf_ids(rng, b, f, v):
+    """Ids with heavy duplicates (zipf), some in ``[-V, 0)`` and two out of
+    range: an atomic scatter would add each row's many terms in an order
+    that changes from run to run."""
+    ids = (rng.zipf(1.3, (b, f)) % v).astype(np.int32)
+    ids[::3, 0] -= v
+    ids[5, 1], ids[7, 2] = v, -v - 1
+    return torch.from_numpy(ids)
+
+
+def _grad_of(fn, x, g):
+    x = x.detach().clone().requires_grad_()
+    out = fn(x)
+    assert out.grad_fn is not None
+    return torch.autograd.grad(out, x, g)[0]
+
+
+def _assert_tree_sums(got, ids, terms, v):
+    """``got [v, d]`` against the float64 sum of ``terms [N, d]`` into the
+    rows ``ids [N]`` (``V + id`` below 0; out of range dropped), each row
+    within a pairwise sum's rounding: (ceil(log2 n) + 1) * 2**-24 * its
+    sum of |term| plus one ulp, for its n terms (the doubling scan adds
+    partial sums in a tree of that depth; the 1 covers the terms' own
+    rounding, as g / F in mean mode)."""
+    row = torch.where(ids < 0, ids + v, ids).long()
+    keep = (row >= 0) & (row < v)
+    row, terms = row[keep], terms[keep].double()
+    d = terms.shape[1]
+    exact = torch.zeros((v, d), dtype=torch.float64).index_add_(0, row, terms)
+    mass = torch.zeros((v, d), dtype=torch.float64).index_add_(
+        0, row, terms.abs())
+    n = torch.zeros(v, dtype=torch.float64).index_add_(
+        0, row, torch.ones_like(row, dtype=torch.float64))
+    depth = torch.ceil(torch.log2(n.clamp(min=1))) + 1
+    tol = depth[:, None] * 2.0 ** -24 * mass + 2.0 ** -23 * exact.abs()
+    excess = ((got.double().cpu() - exact).abs() - tol).max()
+    assert float(excess) <= 0, float(excess)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [1, 10])
+def test_embedding_bag_backward_on_the_card(mode, d):
+    """B5's gradient on the card: equal to the CPU's (the same sort and
+    scan), within a pairwise sum's rounding of the float64 sum (rows
+    reached up to ~16,000 times by zipf ids), and bitwise equal across
+    two passes; the forward launched the kernel."""
+    _need_card()
+    rng = np.random.default_rng(d)
+    v, b, f = 5000, 65536, 39
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    ids = _zipf_ids(rng, b, f, v)
+    g = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    tc, ic, gc = table.cuda(), ids.cuda(), g.cuda()
+    before = embedding_bag.launches
+    got = _grad_of(lambda x: embedding_bag(x, ic, mode), tc, gc)
+    assert embedding_bag.launches == before + 1
+    again = _grad_of(lambda x: embedding_bag(x, ic, mode), tc, gc)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.cpu(), _grad_of(lambda x: embedding_bag(x, ids, mode), table, g),
+        rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    terms = g.double() / (f if mode == "mean" else 1)
+    _assert_tree_sums(got, ids.reshape(-1),
+                      terms.repeat_interleave(f, 0), v)
+
+
+def test_take_rows_and_fm_interaction_backward_on_the_card():
+    """The field lookup's gradient (the embedding table's) and B6's on the
+    card: equal to the CPU's, B6's to autograd through its plain version,
+    and each bitwise equal across two passes."""
+    _need_card()
+    from repro_torch.kernels.embedding_bag import take_rows
+    rng = np.random.default_rng(5)
+    v, b, f, d = 5000, 16384, 39, 10
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    ids = _zipf_ids(rng, b, f, v)
+    g = torch.from_numpy(rng.standard_normal((b, f, d)).astype(np.float32))
+    got = _grad_of(lambda x: take_rows(x, ids.cuda()), table.cuda(),
+                   g.cuda())
+    assert torch.equal(got, _grad_of(lambda x: take_rows(x, ids.cuda()),
+                                     table.cuda(), g.cuda()))
+    torch.testing.assert_close(got.cpu(), _grad_of(
+        lambda x: take_rows(x, ids), table, g), rtol=GRAD_RTOL,
+        atol=GRAD_ATOL)
+    _assert_tree_sums(got, ids.reshape(-1), g.reshape(-1, d), v)
+    emb = torch.from_numpy((rng.standard_normal((b, f, d)) * 0.5).astype(
+        np.float32))
+    gb = torch.from_numpy(rng.standard_normal(b).astype(np.float32))
+    before = fm_interaction.launches
+    got = _grad_of(fm_interaction, emb.cuda(), gb.cuda())
+    assert fm_interaction.launches == before + 1
+    assert torch.equal(got, _grad_of(fm_interaction, emb.cuda(), gb.cuda()))
+    torch.testing.assert_close(got.cpu(), _grad_of(fm_interaction, emb, gb),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    torch.testing.assert_close(got, _grad_of(fm_interaction_plain,
+                                             emb.cuda(), gb.cuda()),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_deepfm_training_step_on_the_card_matches_the_cpu():
+    """The DeepFM smoke config's loss gradient on the card (B5 and B6 in
+    the forward) against the CPU's from the same parameters, leaf for
+    leaf; two AdamW steps through ``make_train_step`` with the CPU's
+    losses; and a second card run of the steps bitwise equal."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
+    cfg = get_arch("deepfm").make_smoke_config()
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    step = make_train_step(lambda p, b: recsys.loss_fn(p, b, cfg), opt)
+    cpu0 = recsys.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for _, b in
+               zip(range(2), recsys_batches(0, 0, cfg.n_sparse,
+                                            cfg.vocab_per_field, 4096))]
+
+    def on(dev, tree):
+        return tree_map(lambda x: x.to(dev, copy=True), tree)
+
+    def grads(dev):
+        leaves = [x.requires_grad_() for x in tree_leaves(on(dev, cpu0))]
+        loss, _ = recsys.loss_fn(tree_unflatten(cpu0, leaves),
+                                 on(dev, batches[0]), cfg)
+        return torch.autograd.grad(loss, leaves)
+
+    def run(dev):
+        p = on(dev, cpu0)
+        st = init_state(opt, p)
+        losses = []
+        for b in batches:
+            p, st, m = step(p, st, on(dev, b))
+            losses.append(float(m["loss"]))
+        return (p, st), losses
+
+    before = (embedding_bag.launches, fm_interaction.launches)
+    for a, b in zip(grads(torch.device("cuda")), grads(torch.device("cpu"))):
+        torch.testing.assert_close(a.cpu(), b, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+    card, card_losses = run(torch.device("cuda"))
+    assert embedding_bag.launches - before[0] == 3
+    assert fm_interaction.launches - before[1] == 3
+    _, cpu_losses = run(torch.device("cpu"))
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
+    again, _ = run(torch.device("cuda"))
+    for a, b in zip(tree_leaves(card), tree_leaves(again)):
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
-"""The port's streaming and observability examples, run at a small size
-on the CPU as ``tests/test_torch_pipeline.py`` runs
-``examples/async_serving_torch.py``: each exits 0 and prints what its
-reference prints. One intra-op thread: the examples' threads and the
+"""The port's streaming, observability and recsys retrieval examples, run
+on the CPU (the first two at a small size) as
+``tests/test_torch_pipeline.py`` runs ``examples/async_serving_torch.py``:
+each exits 0 and prints what its reference prints. One intra-op thread: the examples' threads and the
 test workers would oversubscribe the CPU."""
 
 import os
@@ -41,3 +41,17 @@ def test_observability_example_runs_on_cpu():
     assert "fault.fired point=compaction.build" in out
     assert "compaction.fail" in out and "compaction.success" in out
     assert "metrics snapshot validates against the checked-in schema" in out
+
+
+def test_recsys_retrieval_example_runs_on_cpu():
+    """DeepFM-demo trained for 150 steps through ``Trainer`` (its loss
+    falls), the exact top-100 of 20,000 candidates through ``bta`` equal
+    to ``naive``'s, re-ranked to 5 items for each of 4 queries."""
+    out = _run("recsys_retrieval_torch.py")
+    line = next(x for x in out.splitlines() if x.startswith("DeepFM"))
+    first, last = (float(v) for v in
+                   line.split("loss ")[1].split(" (")[0].split(" -> "))
+    assert last < first
+    assert "bta's top-100 equals naive's: True" in out
+    assert sum(x.strip().startswith("query ") for x in out.splitlines()) \
+        == 4

@@ -9,7 +9,17 @@ the port through ``convert.recsys_params_from_reference``, so both
 packages compute over the identical state. Logits and query embeddings
 agree within 1e-5 relative plus 1e-4 absolute: the same fp32 arithmetic
 in other summation orders (XLA:CPU against PyTorch's CPU kernels), the
-absolute term for logits that cancel to near zero."""
+absolute term for logits that cancel to near zero.
+
+Training: ``loss_fn`` and the gradient of every parameter leaf against
+``jax.value_and_grad`` of the reference's ``loss_fn``, within 1e-5
+relative plus 1e-6 absolute (the same fp32 formulas summed in other
+orders; the absolute term for entries of rows that few ids reach); and
+the backward passes of kernels B5 and B6 (``torch.autograd.Function``
+objects: plain PyTorch behind the kernel's forward, the same code on
+every device) against autograd through plain PyTorch indexing and
+through the plain versions, and against ``jax.vjp`` of the reference's
+``kernels/ref.py`` oracles, within the same tolerance."""
 
 import dataclasses
 
@@ -21,9 +31,12 @@ import torch
 
 from repro.configs import get_arch as ref_get_arch
 from repro.core import from_matrix_factorization as ref_from_mf
+from repro.kernels.ref import embedding_bag_ref as ref_bag
+from repro.kernels.ref import fm_interaction_ref as ref_fm
 from repro.data.synthetic import recsys_batches as ref_recsys_batches
 from repro.models import recsys as ref_recsys
 from repro.models.common import ACTIVATIONS as REF_ACTIVATIONS
+from repro.models.common import MeshRules as RefMeshRules
 from repro.models.common import count_params as ref_count_params
 from repro.serving.server import TopKServer as RefServer
 from repro.serving.server import TwoStageRanker as RefRanker
@@ -31,10 +44,13 @@ from repro_torch.configs import REGISTRY, get_arch
 from repro_torch.convert import recsys_params_from_reference
 from repro_torch.core.seplr import SepLRModel
 from repro_torch.data.synthetic import recsys_batches
-from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.fm_interaction import fm_interaction
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_plain, take_rows)
+from repro_torch.kernels.fm_interaction import (fm_interaction,
+                                                fm_interaction_plain)
 from repro_torch.models import recsys
-from repro_torch.models.common import ACTIVATIONS, count_params
+from repro_torch.models.common import ACTIVATIONS, MeshRules, count_params
+from repro_torch.train.tree import tree_flatten_with_path, path_key
 from repro_torch.serving.server import TopKServer, TwoStageRanker
 
 from _torch_parity import host
@@ -209,3 +225,144 @@ def test_two_stage_flow_matches_reference():
     assert st.n_queries == 4
     assert st.scores_per_query == \
         ref_ranker.retrieval.stats["bta"].scores_per_query
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss and its gradients, B5's and B6's backward passes
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_loss_and_every_gradient_match_reference(arch_id):
+    """``loss_fn``'s loss, ``bce`` and ``acc``, and the gradient of every
+    parameter leaf (a dense table gradient for the embedding and the
+    linear weights), against ``jax.value_and_grad``, on the same batch."""
+    ref_cfg, ref_params, cfg, params = _both(arch_id)
+    batch = _batch(cfg, 64, seed=2)
+    (ref_loss, ref_m), ref_grads = jax.value_and_grad(
+        ref_recsys.loss_fn, has_aux=True)(
+        ref_params, {k: jnp.asarray(v) for k, v in batch.items()}, ref_cfg)
+    flat = tree_flatten_with_path(params)
+    leaves = [x.requires_grad_() for _, x in flat]
+    loss, m = recsys.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    loss, m = loss.detach(), {k: v.detach() for k, v in m.items()}
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
+    np.testing.assert_allclose(float(m["bce"]), float(ref_m["bce"]),
+                               rtol=1e-6)
+    assert float(m["acc"]) == float(ref_m["acc"])
+    ref_flat = dict((path_key(tuple(getattr(k, "key", getattr(k, "idx", k))
+                                    for k in path)), g) for path, g in
+                    jax.tree_util.tree_flatten_with_path(ref_grads)[0])
+    assert sorted(ref_flat) == sorted(path_key(path) for path, _ in flat)
+    for (path, _), g in zip(flat, grads):
+        want = np.asarray(ref_flat[path_key(path)])
+        assert tuple(g.shape) == want.shape
+        np.testing.assert_allclose(host(g), want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=path_key(path))
+    assert np.abs(np.asarray(ref_flat["embed"])).max() > 0
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_param_specs_match_reference(arch_id):
+    ref_cfg = ref_get_arch(arch_id).make_smoke_config()
+    cfg = get_arch(arch_id).make_smoke_config()
+    for rules, ref_rules in ((MeshRules(), RefMeshRules()),
+                             (MeshRules(tp=None), RefMeshRules(tp=None))):
+        want = jax.tree_util.tree_map(
+            tuple, ref_recsys.param_specs(ref_cfg, ref_rules),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        assert recsys.param_specs(cfg, rules) == want
+
+
+def _bag_case(seed, v, d, b, f):
+    """A table and ids with duplicates, ids in ``[-V, 0)`` and a few out of
+    range (their bags are NaN; their rows get no gradient)."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    ids = (rng.zipf(1.3, (b, f)) % v).astype(np.int32)
+    ids[::3, 0] -= v                          # [-V, 0): row V + id
+    ids[5, 1], ids[7, 2] = v, -v - 1          # out of range
+    grad = rng.standard_normal((b, d)).astype(np.float32)
+    return table, ids, grad
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [1, 10])
+def test_embedding_bag_backward(mode, d):
+    """B5's gradient: the Function's backward against autograd through
+    plain PyTorch indexing (PyTorch's own scatter), through the plain
+    version, and ``jax.vjp`` of ``embedding_bag_ref`` (``jnp.take``)."""
+    table, ids, grad = _bag_case(d, 300, d, 64, 39)
+    t = torch.from_numpy(table)
+    ti, tg = torch.from_numpy(ids), torch.from_numpy(grad)
+
+    def vjp(fn):
+        x = t.clone().requires_grad_()
+        return host(torch.autograd.grad(fn(x), x, tg)[0])
+
+    def by_indexing(x):
+        row = torch.where(ti < 0, ti + 300, ti).long()
+        valid = (row >= 0) & (row < 300)
+        rows = x[torch.where(valid, row, 0)] * valid[..., None]
+        return rows.sum(1) if mode == "sum" else rows.mean(1)
+
+    got = vjp(lambda x: embedding_bag(x, ti, mode))
+    _, ref_vjp = jax.vjp(lambda x: ref_bag(x, jnp.asarray(ids), mode=mode),
+                         jnp.asarray(table))
+    for want in (vjp(by_indexing),
+                 vjp(lambda x: embedding_bag_plain(x, ti, mode)),
+                 np.asarray(ref_vjp(jnp.asarray(grad))[0])):
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+    assert got[299].any() and not got[~np.isin(np.arange(300), np.where(
+        ids < 0, ids + 300, ids))].any()
+
+
+def test_take_rows_backward_and_float16():
+    """The field lookup's gradient (the embedding table's, in every
+    model) against ``jax.vjp`` of ``jnp.take``; a float16 table gets a
+    float16 gradient of the float32 sums."""
+    table, ids, _ = _bag_case(3, 200, 4, 32, 8)
+    g = np.random.default_rng(4).standard_normal((32, 8, 4)).astype(
+        np.float32)
+    x = torch.from_numpy(table).requires_grad_()
+    got = torch.autograd.grad(take_rows(x, torch.from_numpy(ids)), x,
+                              torch.from_numpy(g))[0]
+    _, ref_vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(ids), axis=0),
+                         jnp.asarray(table))
+    want = np.asarray(ref_vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(host(got), want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    x16 = torch.from_numpy(table).half().requires_grad_()
+    got16 = torch.autograd.grad(
+        embedding_bag(x16, torch.from_numpy(ids), "sum"), x16,
+        torch.from_numpy(g[:, 0]).half())[0]
+    assert got16.dtype == torch.float16
+    np.testing.assert_allclose(host(got16).astype(np.float32), np.asarray(
+        jax.vjp(lambda t: ref_bag(t, jnp.asarray(ids)),
+                jnp.asarray(table))[1](jnp.asarray(g[:, 0]))[0]),
+        rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,f,d", [(64, 39, 10), (7, 2, 3), (5, 1, 4)])
+def test_fm_interaction_backward(b, f, d):
+    """B6's gradient ``g * (s - emb)`` against autograd through the plain
+    version and ``jax.vjp`` of ``fm_interaction_ref``."""
+    rng = np.random.default_rng(b + f)
+    emb = (rng.standard_normal((b, f, d)) * 0.5).astype(np.float32)
+    grad = rng.standard_normal(b).astype(np.float32)
+    tg = torch.from_numpy(grad)
+
+    def vjp(fn):
+        x = torch.from_numpy(emb).requires_grad_()
+        return host(torch.autograd.grad(fn(x), x, tg)[0])
+
+    got = vjp(fm_interaction)
+    _, ref_vjp = jax.vjp(ref_fm, jnp.asarray(emb))
+    for want in (vjp(fm_interaction_plain),
+                 np.asarray(ref_vjp(jnp.asarray(grad))[0])):
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
