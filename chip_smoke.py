@@ -260,7 +260,33 @@ checkout. In order, it
     descending and held against the float64 witness. It prints ``lm
     ...``/``lm: {json}`` lines for olmoe (drop rates, EP and non-EP step
     ms, the mesh errors) and ``lm scout: {json}``;
-18. prints one ``{"kernels": [...]}`` line and, last, the device line
+18. the LM training path at gemma-2b's full width and depth (3,030,460,416
+    random fp32 parameters drawn on the card from SEED; bf16 compute,
+    remat on, ``logit_chunk`` 512), after the serving phases' tensors
+    are freed, with every kernel count set to 0 just before and read just
+    after each part (each must stay 0: no TPU kernel is on this path):
+    (a) the model at full width cut to 2 layers, drawn on the CPU and
+    copied to the card, ``logit_chunk`` 64 over 2 x 128 tokens (2 head
+    chunks) at fp32: the loss and every leaf's gradient through
+    ``loss_fn`` (remat, chunks) within ``LM_TRAIN_TOL`` normwise of a
+    witness on the card that shares no code with ``chunked_xent`` or the
+    remat (full fp32 logits, ``F.cross_entropy``, no checkpoint) and of
+    the same ``loss_fn`` on the CPU; (b) at full depth, two gradients of
+    the first batch of 8 x 1,024 tokens from ``lm_batches(SEED)``, bitwise
+    equal; (c) a ``Trainer`` over ``PrefetchLoader(lm_batches(...))`` with
+    the launcher's AdamW (lr 3e-3, warmup 10, cosine to 8) runs 8 steps
+    with no checkpoint, every loss finite; (d) at gemma-2b's smoke
+    config, through the launcher's ``build``, a run checkpointing every 4
+    steps (keep 1) into a temporary directory, preempted at step 6 and
+    resumed from step 4, bitwise the uninterrupted run (parameters, both
+    moments, the losses of steps 5-8). It prints the step's median ms
+    (steps 2-8) against its bound (``lm_train_bounds``: the GEMMs' and
+    the causal attention's operations at the bf16 peak plus AdamW's bytes;
+    the remat's extra forward beside it), tokens/s, peak memory, one
+    profiled step (busy share, launches, time by kernel and by
+    ``LM_TRAIN_PROFILE_GROUPS``) and the phase's seconds, with the card's
+    name and power limit (``lm train ...`` and ``lm train: {json}``);
+19. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -423,6 +449,27 @@ LM_MESHES = ((1, 4), (2, 2))
 LM_MESH_STEP_REPS = 5
 SCOUT_ARCH, SCOUT_PARAMS = "llama4-scout-17b-a16e", 101_730_063_360
 SCOUT_BATCH, SCOUT_PROMPT, SCOUT_STEPS = 4, 256, 8
+# The LM training phase: gemma-2b at full width and depth, random fp32
+# weights drawn on the card from SEED, bf16 compute, remat on, the full
+# config's logit_chunk 512; LM_TRAIN_BATCH sequences of LM_TRAIN_SEQ tokens
+# a step from lm_batches (cut from train_4k's 256 x 4,096: one card holds
+# the state and a step of this), TRAIN_STEPS AdamW steps with the
+# launcher's schedule, no checkpoint. Its check at full width cut to 2
+# layers: logit_chunk 64 over LM_TRAIN_CUT_BATCH x LM_TRAIN_CUT_SEQ tokens
+# (2 chunks) at fp32, the loss and every leaf's gradient within
+# LM_TRAIN_TOL normwise of a witness on the card and of the CPU (fp32 sums
+# in other orders: ~1e-6 on the CPU against the reference). Its resume
+# runs at gemma-2b's smoke config. The bound counts the GEMMs' parameters
+# (the layers' projections and the head; the embedding is a gather).
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
+LM_TRAIN_CUT_CHUNK, LM_TRAIN_CUT_BATCH, LM_TRAIN_CUT_SEQ = 64, 2, 128
+LM_TRAIN_TOL = 1e-5
+LM_MATMUL_PARAMS = 2_506_096_640
+# where a profiled training step's device time goes: printed name -> a
+# substring of the CUDA kernels' names (cuBLAS's Hopper GEMMs are nvjet_*)
+LM_TRAIN_PROFILE_GROUPS = {"GEMMs": "nvjet", "fp32 adds": "CUDAFunctor_add",
+                           "copies and casts": "copy_kernel",
+                           "exp": "exp_kernel", "reductions": "reduce_kernel"}
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores;
 # dense bf16 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1190,8 +1237,7 @@ def train_path(dev) -> list:
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import (SimulatedPreemption, Trainer,
                                            TrainerConfig)
-    from repro_torch.train.tree import (path_key, tree_flatten_with_path,
-                                        tree_leaves, tree_unflatten)
+    from repro_torch.train.tree import tree_leaves
 
     t_phase = time.perf_counter()
     spec = get_arch(RECSYS_ARCH)
@@ -1210,14 +1256,6 @@ def train_path(dev) -> list:
 
     def loss(p, b):
         return recsys.loss_fn(p, b, cfg)
-
-    def grads(params, batch):
-        """The loss's gradient, path key -> tensor."""
-        flat = tree_flatten_with_path(params)
-        leaves = [x.detach().requires_grad_() for _, x in flat]
-        value, _ = recsys.loss_fn(tree_unflatten(params, leaves), batch, cfg)
-        return dict(zip((path_key(p) for p, _ in flat),
-                        torch.autograd.grad(value, leaves)))
 
     def worst(got, want):
         errs = {key: normwise(got[key], want[key]) for key in want}
@@ -1274,14 +1312,14 @@ def train_path(dev) -> list:
     params = fresh()
     torch.cuda.synchronize()
     zero_counters()
-    g_kernel = grads(params, batch)
+    _, g_kernel = grads(loss, params, batch)
     torch.cuda.synchronize()
     grad_launches = read_counters()
     check(grad_launches["embedding_bag"] == 1
           and grad_launches["fm_interaction"] == 1,
           f"one gradient launched B5/B6 {grad_launches}, not once each")
     with indexed():
-        g_plain = grads(params, batch)
+        _, g_plain = grads(loss, params, batch)
     err_plain, errs = worst(g_kernel, g_plain)
     print(f"train: gradient through the kernels vs the plain versions "
           f"over advanced indexing on the card, normwise by leaf: "
@@ -1294,10 +1332,11 @@ def train_path(dev) -> list:
     # -- (c) the card against the CPU on the first examples -----------------
     n = TRAIN_CPU_EXAMPLES
     t0 = time.perf_counter()
-    g_card = grads(params, {key: v[:n] for key, v in batch.items()})
+    _, g_card = grads(loss, params,
+                      {key: v[:n] for key, v in batch.items()})
     cpu_params = tree_to(params, "cpu")
     cpu_batch = {key: torch.from_numpy(v[:n]) for key, v in first.items()}
-    g_cpu = grads(cpu_params, cpu_batch)
+    _, g_cpu = grads(loss, cpu_params, cpu_batch)
     err_cpu, errs = worst(g_card, g_cpu)
     print(f"train: gradient on the card vs the CPU, first {n} examples, "
           f"normwise by leaf ({time.perf_counter() - t0:.1f} s): "
@@ -2507,6 +2546,19 @@ def normwise(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
+def grads(loss, params, batch):
+    """``(loss, {path key: gradient})`` of every parameter leaf, where
+    ``loss(params, batch)`` returns ``(value, metrics)``."""
+    import torch
+    from repro_torch.train.tree import (path_key, tree_flatten_with_path,
+                                        tree_unflatten)
+    flat = tree_flatten_with_path(params)
+    leaves = [x.detach().requires_grad_() for _, x in flat]
+    value, _ = loss(tree_unflatten(params, leaves), batch)
+    return value.detach(), dict(zip((path_key(p) for p, _ in flat),
+                                    torch.autograd.grad(value, leaves)))
+
+
 def lm_topk_agree(got, want, dtype: str, k: int) -> bool:
     """Top-(k+1) ``(values, ids)`` of two runs: the first k values within
     ``LM_TOL`` of the largest, ids equal where ``want``'s logit stands clear
@@ -3164,6 +3216,251 @@ def scout_cut_path(dev) -> None:
     print("lm scout: " + json.dumps(rec), flush=True)
 
 
+def lm_train_bounds(cfg, B: int, S: int, param_bytes: int) -> dict:
+    """The least time of one LM training step of ``B x S`` tokens: the
+    GEMMs' operations (6 x the matmul parameters x tokens: the forward
+    and the two products of the backward) plus the causal attention's
+    (``3 * 2 * B * S**2 * q_dim`` a layer: QK^T and PV over half the
+    square, forward and backward) at the bf16 peak, PLUS AdamW's bytes:
+    8 passes over the fp32 parameters' bytes (the gradient written by the
+    backward and read by AdamW, the parameters and both moments read and
+    written; ``train/optimizer.py`` keeps every leaf dense) at the HBM
+    rate. A sum, not a max: the update cannot start before the gradient
+    is whole (it is clipped by its global norm). ``remat_ms`` is the
+    checkpoints' extra forward (the layers' and the head chunks'),
+    printed beside the bound, not in it."""
+    L, D = cfg.n_layers, cfg.d_model
+    layer = D * cfg.q_dim + 2 * D * cfg.kv_dim + cfg.q_dim * D \
+        + 3 * D * cfg.d_ff
+    matmul = L * layer + D * cfg.vocab_size
+    tokens = B * S
+    causal = 3 * 2 * B * S * S * cfg.q_dim * L
+    ops_ms = 1e3 * (6 * matmul * tokens + causal) / BF16_FLOPS_PER_S
+    bytes_ms = 1e3 * 8 * param_bytes / HBM_BYTES_PER_S
+    return {"matmul_params": matmul, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": ops_ms + bytes_ms,
+            "remat_ms": 1e3 * (2 * matmul * tokens + causal / 3)
+            / BF16_FLOPS_PER_S}
+
+
+def lm_train_path(dev) -> None:
+    """Step 18 of the module docstring."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.configs import get_arch
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.train import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import count_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import (SimulatedPreemption, Trainer,
+                                           TrainerConfig)
+    from repro_torch.train.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gpu = gpu_name_and_power()
+    cfg = get_arch(LM_ARCH).make_config()
+    check(cfg.param_count() == LM_PARAMS and cfg.remat
+          and cfg.compute_dtype == torch.bfloat16,
+          f"{LM_ARCH}: {cfg.param_count()} parameters, remat {cfg.remat}, "
+          f"{cfg.compute_dtype}")
+    V, B, S = cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    opt = OptimizerConfig(kind="adamw", lr=TRAIN_LR,
+                          warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+
+    def on(batch, where):
+        return {key: torch.from_numpy(v).to(where) for key, v in
+                batch.items()}
+
+    def counted(label, fn):
+        """``fn()`` with every kernel count set to 0 just before and read
+        just after: no TPU kernel is on this path."""
+        torch.cuda.synchronize()
+        zero_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        check(not any(launches.values()),
+              f"LM training, {label}: launched a kernel {launches}")
+        return out
+
+    # -- (a) full width cut to 2 layers: witness and CPU, fp32 ----------------
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
+                              logit_chunk=LM_TRAIN_CUT_CHUNK,
+                              compute_dtype=torch.float32)
+    on_cpu = tf.init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
+    on_card = tree_to(on_cpu, dev)
+    first = next(lm_batches(SEED, V, LM_TRAIN_CUT_BATCH, LM_TRAIN_CUT_SEQ))
+    draw_s = time.perf_counter() - t0
+
+    def loss_cut(p, b):
+        return tf.loss_fn(p, b, cut)
+
+    def witness(p, b):
+        """Full fp32 logits and ``F.cross_entropy``, no checkpoint: shares
+        no code with ``chunked_xent`` or the remat."""
+        h, aux = tf.forward(p, b["tokens"],
+                            dataclasses.replace(cut, remat=False))
+        logits = h.float() @ p["unembed"].float()
+        xent = tnf.cross_entropy(logits.reshape(-1, V),
+                                 b["labels"].reshape(-1).long())
+        return xent + cut.aux_loss_weight * aux / cut.n_layers, {}
+
+    l_card, g_card = counted("the 2-layer cut", lambda: grads(
+        loss_cut, on_card, on(first, dev)))
+    l_wit, g_wit = grads(witness, on_card, on(first, dev))
+    t1 = time.perf_counter()
+    l_cpu, g_cpu = grads(loss_cut, on_cpu, on(first, "cpu"))
+    cpu_s = time.perf_counter() - t1
+    cut_errs = {}
+    for side, (lw, gw) in (("witness", (l_wit, g_wit)),
+                           ("cpu", (l_cpu, g_cpu))):
+        cut_errs[side] = {"loss": abs(float(l_card) - float(lw))
+                          / abs(float(lw))}
+        cut_errs[side].update({key: normwise(g_card[key], gw[key])
+                               for key in gw})
+        worst = max(cut_errs[side].values())
+        check(worst <= LM_TRAIN_TOL,
+              f"LM training, 2-layer cut at fp32: loss_fn on the card vs "
+              f"the {side} {worst:.3g} > {LM_TRAIN_TOL}: {cut_errs[side]}")
+    cut_s = time.perf_counter() - t0
+    print(f"lm train (a): {LM_ARCH} at full width cut to {LM_CPU_LAYERS} "
+          f"layers, {LM_TRAIN_CUT_BATCH} x {LM_TRAIN_CUT_SEQ} tokens in "
+          f"{LM_TRAIN_CUT_SEQ // LM_TRAIN_CUT_CHUNK} head chunks, fp32: loss "
+          f"{float(l_card):.7f}; the loss and every leaf's gradient, "
+          f"relative / normwise, vs the witness (full logits, "
+          f"F.cross_entropy, no remat) and vs the CPU: "
+          f"{json.dumps(cut_errs)} ({cut_s:.1f} s: drawn on the CPU and "
+          f"copied {draw_s:.1f} s, the CPU's gradient {cpu_s:.1f} s)",
+          flush=True)
+    del on_cpu, on_card, g_card, g_wit, g_cpu
+    torch.cuda.empty_cache()
+
+    # -- (b) full depth: two gradients of the first batch, bitwise ------------
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    check(count_params(params) == LM_PARAMS,
+          f"{LM_ARCH}: {count_params(params)} parameters drawn")
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+
+    def stream():
+        return lm_batches(SEED, V, B, S)
+
+    def loss(p, b):
+        return tf.loss_fn(p, b, cfg)
+
+    batch = on(next(stream()), dev)
+    l1, g1 = counted("a full-depth gradient", lambda: grads(loss, params,
+                                                            batch))
+    l2, g2 = grads(loss, params, batch)
+    same = torch.equal(l1, l2) and all(torch.equal(g1[key], g2[key])
+                                       for key in g1)
+    check(same and bool(torch.isfinite(l1)),
+          f"LM training: two gradients of the first batch are not bitwise "
+          f"equal (losses {float(l1)}, {float(l2)})")
+    grad_s = time.perf_counter() - t0
+    del g1, g2
+    torch.cuda.empty_cache()
+
+    # -- (c) eight steps through Trainer --------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(loss, params, opt, PrefetchLoader(stream),
+                 TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                               ckpt_every=TRAIN_STEPS + 1))
+    t0 = time.perf_counter()
+    counted("the Trainer's steps", tr.run)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tr.data.close()
+    losses = [h["loss"] for h in tr.history]
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"LM training losses not finite: {losses}")
+    step_ms = [1e3 * h["step_time"] for h in tr.history]
+    med = float(np.median(step_ms[1:]))
+    prof = profile_call(f"one {LM_ARCH} training step", lambda: tr.train_step(
+        tr.params, tr.opt_state, batch), LM_TRAIN_PROFILE_GROUPS, cpu=False)
+    del tr, params, batch
+    torch.cuda.empty_cache()
+
+    # -- (d) the smoke config, preempted at step 6 and resumed from step 4 ----
+    t0 = time.perf_counter()
+
+    def trainer(**kw):
+        _, p, loss_s, data = build(LM_ARCH, B, LM_TRAIN_CUT_SEQ, SEED, dev)
+        return Trainer(loss_s, p, opt, PrefetchLoader(data),
+                       TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                     **kw))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    try:
+        ck = dict(ckpt_every=TRAIN_CKPT_EVERY,
+                  ckpt_dir=os.path.join(tmp, "ckpt"), keep_ckpts=1)
+        whole = trainer(ckpt_every=TRAIN_STEPS + 1)
+        counted("the smoke config's run", whole.run)
+        cut_run = trainer(fail_at_step=TRAIN_FAIL_AT, **ck)
+        try:
+            cut_run.run()
+            fail(f"LM training: no preemption at step {TRAIN_FAIL_AT}")
+        except SimulatedPreemption:
+            pass
+        cut_run.manager.wait()
+        resumed = trainer(**ck)
+        resumed.run()
+        for t in (whole, cut_run, resumed):
+            t.data.close()
+        check(resumed.history[0]["step"] == TRAIN_CKPT_EVERY + 1
+              and resumed.step == TRAIN_STEPS,
+              "LM training: the resumed run did not start from step 4")
+        check([h["loss"] for h in resumed.history]
+              == [h["loss"] for h in whole.history][TRAIN_CKPT_EVERY:]
+              and all(torch.equal(a, b) for a, b in zip(
+                  tree_leaves({"p": resumed.params, "o": resumed.opt_state}),
+                  tree_leaves({"p": whole.params, "o": whole.opt_state}))),
+              "LM training: the resumed run is not bitwise the "
+              "uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resume_s = time.perf_counter() - t0
+
+    bounds = lm_train_bounds(cfg, B, S, param_bytes)
+    check(bounds["matmul_params"] == LM_MATMUL_PARAMS,
+          f"{LM_ARCH}: {bounds['matmul_params']} matmul parameters")
+    rec = {"arch": LM_ARCH, "params": LM_PARAMS, "batch": B, "seq": S,
+           "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med, "tokens_per_s": B * S / (med / 1e3),
+           **bounds, "param_bytes": param_bytes, "peak_bytes": peak,
+           "cut_errors": cut_errs, "cut_s": cut_s, "grad_s": grad_s,
+           "run_s": run_s, "resume_s": resume_s,
+           "phase_s": time.perf_counter() - t_phase, "card": gpu}
+    if prof is not None:
+        rec["step_profile"] = {key: prof[key] for key in ("wall_us",
+                                                          "busy_us",
+                                                          "launches")}
+    print(f"lm train {LM_ARCH} at {gpu}: {TRAIN_STEPS} steps of {B} x {S} "
+          f"tokens in {run_s:.1f} s, losses {[round(x, 4) for x in losses]}; "
+          f"step median (steps 2-{TRAIN_STEPS}) {med:.2f} ms (all "
+          f"{[round(x, 2) for x in step_ms]}), {rec['tokens_per_s']:.0f} "
+          f"tokens/s; bound {bounds['bound_ms']:.2f} ms (GEMMs and causal "
+          f"attention {bounds['ops_ms']:.2f} ms at 989 TFLOP/s bf16, AdamW's "
+          f"8 passes over {param_bytes / 1e9:.2f} GB {bounds['bytes_ms']:.2f} "
+          f"ms at 3.35 TB/s): {med / bounds['bound_ms']:.2f}x; the remat's "
+          f"extra forward {bounds['remat_ms']:.2f} ms (not in the bound); "
+          f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB); two "
+          f"full-depth gradients bitwise equal ({grad_s:.1f} s); the smoke "
+          f"config's preempted run resumed bitwise ({resume_s:.1f} s); phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    print("lm train: " + json.dumps(rec), flush=True)
+
+
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
     """Step 15 of the module docstring. ``results`` holds the LSHTC-like
     ``naive`` and ``norm`` runs of the main path; ``cpu_ctx`` is a CPU
@@ -3608,6 +3905,8 @@ def run(dev, kind: str) -> None:
     lm_path(dev, MOE_ARCH, MOE_PARAMS)
     torch.cuda.empty_cache()
     scout_cut_path(dev)
+    torch.cuda.empty_cache()
+    lm_train_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())

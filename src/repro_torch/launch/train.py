@@ -5,11 +5,12 @@ It trains the arch's smoke configuration end to end on ``--device``
 (default ``cuda``) with the whole substrate: the seeded synthetic data
 through :class:`repro_torch.data.loader.PrefetchLoader`, AdamW (warmup
 10 steps, cosine to ``--steps``), fault-tolerant checkpoints and resume.
-The recsys family trains (``fm``, ``deepfm``, ``dcn-v2``, ``dlrm-rm2``);
-the LMs' and the GNN's training are later slices of the port and raise
-``NotImplementedError``. ``--seq-len`` is the LMs' sequence length: the
-recsys family ignores it, and the LM training slice (ROADMAP A7.4) reads
-it.
+The LMs (``gemma-2b``, ``olmoe-1b-7b`` and the other ``lm`` archs:
+:func:`repro_torch.models.transformer.loss_fn` over ``lm_batches`` of
+``--batch`` sequences of ``--seq-len`` tokens) and the recsys family
+(``fm``, ``deepfm``, ``dcn-v2``, ``dlrm-rm2``; ``--seq-len`` unread)
+train; the GNN's training is a later slice of the port and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,34 +22,36 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data.loader import PrefetchLoader
-from repro_torch.data.synthetic import recsys_batches
+from repro_torch.data.synthetic import lm_batches, recsys_batches
 from repro_torch.models import recsys as recsys_mod
+from repro_torch.models import transformer as tf_mod
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 # The reference's GNN arch, whose model is not in the port's registry yet
 GNN_ARCHS = ("pna",)
-LATER = {"lm": "ROADMAP A7.4 (LM training)",
-         "gnn": "ROADMAP A7.6 (the GNN)"}
+LATER = {"gnn": "ROADMAP A7.6 (the GNN)"}
 
 
 def build(arch_id: str, batch: int, seq_len: int, seed: int, device=None):
     """``(config, params, loss, make_data)`` of ``arch_id``'s smoke config,
     the parameters drawn from ``seed`` on ``device`` (``None`` = ``cuda``)."""
     family = "gnn" if arch_id in GNN_ARCHS else get_arch(arch_id).family
-    if family != "recsys":
+    if family in LATER:
         raise NotImplementedError(
             f"training the {family} family ({arch_id}) is not ported yet: "
             f"{LATER[family]}")
     dev = resolve_device(device)
     cfg = get_arch(arch_id).make_smoke_config()
-    params = recsys_mod.init_params(
-        cfg, torch.Generator(dev).manual_seed(seed), dev)
+    mod = tf_mod if family == "lm" else recsys_mod
+    params = mod.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
 
     def loss(p, b):
-        return recsys_mod.loss_fn(p, b, cfg)
+        return mod.loss_fn(p, b, cfg)
 
     def data():
+        if family == "lm":
+            return lm_batches(seed, cfg.vocab_size, batch, seq_len)
         return recsys_batches(seed, cfg.n_dense, cfg.n_sparse,
                               cfg.vocab_per_field, batch)
 

@@ -10,6 +10,18 @@ computes them outside any Pallas kernel; the fixed-arity bag that the
 recsys model runs on the card is kernel B5
 (:func:`repro_torch.kernels.ops.embedding_bag`). ``hashed_lookup`` (the
 reference's hash-trick lookup) is a later slice of the port.
+
+Gradients. Both lookups scatter their rows' gradients into the table
+through :func:`repro_torch.kernels.embedding_bag.row_grad`: a stable sort
+of the rows and a segmented sum in a fixed order, so two backward passes
+on the card are bitwise equal (the backward of ``table[ids]`` and
+``index_add_`` may add duplicate rows with atomics, in an order that
+changes from run to run). The LM's token gradient is summed in float32.
+The reference casts the whole table to the compute dtype and then
+gathers (``params["embed"].astype(dt)[tokens]``), so at bf16 its
+transpose is a bf16 scatter-add into a bf16 ``[V, D]`` buffer, then an
+upcast; :func:`index_rows` gathers the fp32 rows and its backward sums in
+fp32, which is deterministic and no less accurate.
 """
 
 from __future__ import annotations
@@ -18,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.embedding_bag import take_rows
+from repro_torch.kernels.embedding_bag import row_grad, take_rows
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -27,13 +39,30 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return take_rows(table, ids)
 
 
+class _IndexRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.V = V = table.shape[0]
+        row = torch.where(ids < 0, ids + V, ids)
+        return table[row.clamp(0, V - 1).long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        d = grad.shape[-1]
+        return (row_grad(ids, ctx.V, grad.reshape(-1, d), 1).to(grad.dtype),
+                None)
+
+
 def index_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` as jnp's indexing takes rows: an id in ``[-V, 0)``
     counts from the end, any other id is clamped into ``[0, V)``.
-    Never indexes out of range."""
-    V = table.shape[0]
-    row = torch.where(ids < 0, ids + V, ids)
-    return table[row.clamp(0, V - 1).long()]
+    Never indexes out of range. Its gradient is :func:`row_grad`'s
+    deterministic fp32 sum, into which an id outside ``[-V, V)`` adds
+    nothing, as the transpose of jnp's gather drops it (the forward
+    clamps it; the backward does not)."""
+    return _IndexRows.apply(table, ids)
 
 
 def embedding_bag(

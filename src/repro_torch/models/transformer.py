@@ -1,7 +1,8 @@
-"""Decoder-only LM serving (dense and MoE): prefill, the decode step, the
-exact top-K vocab head, and the LM's partition specs.
+"""Decoder-only LM (dense and MoE): the training loss (``loss_fn`` over
+``forward`` with per-layer remat and ``chunked_xent``), prefill, the
+decode step, the exact top-K vocab head, and the LM's partition specs.
 
-The serving path of the reference's ``models/transformer.py``: parameters
+The reference's ``models/transformer.py``: parameters
 are its nested dict of tensors with the layers stacked ``[L, ...]`` (the
 reference's ``init_params``, or its own tree carried across by
 :func:`repro_torch.convert.params_from_reference`), and each
@@ -10,7 +11,9 @@ the parameters' device. Two reads differ in cost, not in value:
 
 * the token rows are gathered first and cast after
   (:func:`repro_torch.models.embedding.index_rows`), where the reference
-  casts the whole ``[V, D]`` table and then gathers;
+  casts the whole ``[V, D]`` table and then gathers (so at bf16 the
+  table's gradient is summed in fp32, where the reference sums it in
+  bf16);
 * each projection weight is cast to ``compute_dtype`` when it is read, as
   the reference casts it, but :func:`serving_params` casts the layer
   stack once beforehand, which makes every later cast a no-op: at
@@ -34,9 +37,22 @@ dispatch (capacity per dp row) and the vocab-sharded head of
 reference's layout constraints have no counterpart (see
 :mod:`repro_torch.models.common`). ``moe_aux``, a list, collects each MoE
 layer's aux dict (``aux_loss``, ``drop_rate``, ``expert_ids``; tensors,
-read by nobody on the path) for a caller that reports them. Training
-(``loss_fn``, ``chunked_xent``) is a later slice of the port (ROADMAP
-A7.4).
+read by nobody on the path) for a caller that reports them.
+
+Training. :func:`loss_fn` is the reference's: ``forward``'s hidden states
+through :func:`chunked_xent`, plus ``aux_loss_weight`` times the summed
+MoE aux loss over the layer count. With ``config.remat`` each layer of
+:func:`forward` runs under ``torch.utils.checkpoint`` (the non-reentrant
+form, which ``torch.autograd.grad`` needs), so only the layers' inputs
+are kept for the backward, as the reference's ``jax.checkpoint`` keeps
+them; the values are the same either way. Each pass unbinds the stacked
+``[L, ...]`` layer weights once (:func:`_layers`): its backward stacks
+the L gradients of a leaf once, where indexing ``w[i]`` a layer would
+add a zero tensor the size of the whole stack into the gradient for
+every layer. The token rows' gradient is
+:func:`repro_torch.models.embedding.index_rows`' deterministic fp32 sum.
+A MoE config trains through :func:`repro_torch.models.moe.moe_ffn`'s
+autograd.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.mesh import Mesh, shard_groups, take_shards
@@ -215,8 +232,12 @@ def param_specs(config: TransformerConfig, rules: MeshRules,
     }
 
 
-def _layer_params(params: Dict, i: int) -> Dict:
-    return {key: w[i] for key, w in params["layers"].items()}
+def _layers(params: Dict) -> List[Dict]:
+    """Each layer's weights, a dict of ``[...]`` tensors a layer: every
+    stacked ``[L, ...]`` leaf unbound once (see the module docstring)."""
+    cols = {key: torch.unbind(w, 0) for key, w in params["layers"].items()}
+    n = len(next(iter(cols.values())))
+    return [{key: col[i] for key, col in cols.items()} for i in range(n)]
 
 
 def _embed(params: Dict, tokens: torch.Tensor,
@@ -323,14 +344,25 @@ def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward. tokens: ``[B, S]`` -> ``(hidden [B, S, D], aux)``;
     ``aux`` is the MoE load-balancing loss summed over the layers (0 for
-    a dense model), fp32."""
+    a dense model), fp32. With ``config.remat`` each layer is
+    checkpointed (recomputed in the backward; a plain call where
+    gradients are off)."""
     S = tokens.shape[1]
     x = _embed(params, tokens, config)
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(config.n_layers):
-        x, a = _layer(_layer_params(params, i), x, config, positions, rules,
-                      mesh, moe_aux=moe_aux)
+    for lp in _layers(params):
+        if config.remat:
+            # the recompute appends its aux dict again, to a list no one
+            # reads; the first pass's goes to the caller's
+            mine = [] if moe_aux is not None else None
+            x, a = checkpoint(_layer, lp, x, config, positions, rules, mesh,
+                              moe_aux=mine, use_reentrant=False)
+            if mine:
+                moe_aux.append(mine[0])
+        else:
+            x, a = _layer(lp, x, config, positions, rules, mesh,
+                          moe_aux=moe_aux)
         if config.moe:
             aux = aux + a
     x = rms_norm(x, params["final_norm"], config.norm_eps)
@@ -349,8 +381,7 @@ def prefill(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
     x = _embed(params, tokens, config)
     positions = torch.arange(S, device=x.device)
     ks, vs = [], []
-    for i in range(config.n_layers):
-        lp = _layer_params(params, i)
+    for lp in _layers(params):
         q, k, v = _qkv(lp, x, config, positions)
         attn = blocked_attention(q, k, v, causal=True,
                                  kv_block=config.kv_block,
@@ -368,6 +399,56 @@ def logits_from_hidden(params: Dict, hidden: torch.Tensor,
                        config: TransformerConfig) -> torch.Tensor:
     """The full logits ``hidden @ unembed``, in ``hidden``'s dtype."""
     return hidden @ params["unembed"].to(hidden.dtype)
+
+
+def _chunk_xent(h: torch.Tensor, labels: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """The summed cross-entropy of one chunk ``h [B, c, D]``: fp32 logits
+    of the compute-dtype product, their logsumexp minus the gold logit. A
+    label outside ``[0, V)`` has a gold logit of 0, as the reference's
+    one-hot contraction gives it."""
+    logits = (h @ w.to(h.dtype)).float()                      # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    V = logits.shape[-1]
+    valid = (labels >= 0) & (labels < V)
+    gold = torch.gather(logits, -1,
+                        torch.where(valid, labels, 0).long()[..., None])
+    return torch.sum(lse - torch.where(valid, gold[..., 0], 0.0))
+
+
+def chunked_xent(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
+                 config: TransformerConfig,
+                 rules: MeshRules = DEFAULT_RULES) -> torch.Tensor:
+    """Mean cross-entropy of ``hidden [B, S, D]`` against ``labels [B, S]``
+    without materialising ``[B, S, V]`` logits: the sequence is cut into
+    chunks of ``config.logit_chunk`` positions (one chunk of ``S`` when
+    that does not divide ``S``), each checkpointed, so its logits live
+    only while it runs, in the forward and again in the backward. The
+    chunks' sums add in order in fp32, as the reference's scan adds them.
+    ``rules`` is the reference's (a layout constraint, no value)."""
+    B, S, _ = hidden.shape
+    chunk = min(config.logit_chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    w = params["unembed"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, S, chunk):
+        total = total + checkpoint(_chunk_xent, hidden[:, start:start + chunk],
+                                   labels[:, start:start + chunk], w,
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def loss_fn(params: Dict, batch: Dict, config: TransformerConfig,
+            rules: MeshRules = DEFAULT_RULES, mesh: Optional[Mesh] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """The training loss of ``batch`` (``tokens``, ``labels``: ``[B, S]``):
+    ``xent + aux_loss_weight * aux / max(n_layers, 1)``, and the metrics
+    ``{"xent", "aux_loss"}`` (0-d fp32 tensors)."""
+    hidden, aux = forward(params, batch["tokens"], config, rules, mesh)
+    xent = chunked_xent(params, hidden, batch["labels"], config, rules)
+    loss = xent + config.aux_loss_weight * aux / max(config.n_layers, 1)
+    return loss, {"xent": xent, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +505,9 @@ def decode_hidden(params: Dict, cache: Dict, tokens: torch.Tensor,
     S = tokens.shape[1]
     x = _embed(params, tokens, config)
     positions = cache_len + torch.arange(S, device=x.device)
-    for i in range(config.n_layers):
-        x, _ = _layer(_layer_params(params, i), x, config, positions,
-                      rules, mesh, kv_cache=(cache["k"][i], cache["v"][i]),
+    for i, lp in enumerate(_layers(params)):
+        x, _ = _layer(lp, x, config, positions, rules, mesh,
+                      kv_cache=(cache["k"][i], cache["v"][i]),
                       cache_len=cache_len, moe_aux=moe_aux)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return x[:, -1, :]

@@ -38,7 +38,13 @@ gradients also to a float64 sum within a pairwise sum's rounding (rows
 that zipf ids reach thousands of times: a fixed relative tolerance does
 not bound such sums in another order), and two identical backward passes
 or steps on the card must be bitwise equal: the table gradient's scatter
-is a stable sort and a segmented sum in a fixed order, with no atomics."""
+is a stable sort and a segmented sum in a fixed order, with no atomics.
+The LM's token lookup (``index_rows``) is held the same way, and the LM
+``loss_fn`` (remat, chunked head) at the smoke configs to the CPU's
+within 1e-5 normwise at fp32 and 5e-2 at bf16 (the CPU tests' limits
+against the reference), two card passes bitwise equal; the MoE config at
+bf16 with its routing held up to each row's first flip, a near-tie, and
+its gradient to the CPU's fp32 one."""
 
 import numpy as np
 import pytest
@@ -1077,3 +1083,119 @@ def test_deepfm_training_step_on_the_card_matches_the_cpu():
     again, _ = run(torch.device("cuda"))
     for a, b in zip(tree_leaves(card), tree_leaves(again)):
         assert torch.equal(a, b)
+
+
+def test_index_rows_backward_on_the_card():
+    """The LM token lookup's gradient (the ``embed`` table's) on the card:
+    bitwise equal across two passes, equal to the CPU's, and within a
+    pairwise sum's rounding of the float64 sum (zipf tokens; ids outside
+    ``[-V, V)`` add nothing)."""
+    _need_card()
+    from repro_torch.models.embedding import index_rows
+    rng = np.random.default_rng(6)
+    v, b, s, d = 5000, 8, 1024, 64
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    ids = _zipf_ids(rng, b, s, v)
+    g = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
+    got = _grad_of(lambda x: index_rows(x, ids.cuda()), table.cuda(),
+                   g.cuda())
+    assert torch.equal(got, _grad_of(lambda x: index_rows(x, ids.cuda()),
+                                     table.cuda(), g.cuda()))
+    torch.testing.assert_close(got.cpu(), _grad_of(
+        lambda x: index_rows(x, ids), table, g), rtol=GRAD_RTOL,
+        atol=GRAD_ATOL)
+    _assert_tree_sums(got, ids.reshape(-1), g.reshape(-1, d), v)
+
+
+LM_NEAR_TIE = 3e-2
+
+
+def _lm_first_flips_are_near_ties(card_aux, cpu_aux, b, s, k):
+    """The card's and the CPU's MoE routing of the same ``[b, s]`` tokens,
+    layer by layer: each row's first token routed to another expert set,
+    in the first layer where it differs, must be a near-tie on the CPU
+    (its k-th and (k+1)-th router logits within ``LM_NEAR_TIE`` of the
+    largest magnitude, as ``tests/test_torch_lm_train.py`` holds the
+    reference's). Later positions of the row are not held: a flip changes
+    its token's hidden state and, through attention, every later one's."""
+    sets = [torch.stack([a["expert_ids"].reshape(b, s, k).sort(-1).values
+                         .cpu() for a in aux]) for aux in (card_aux, cpu_aux)]
+    diff = (sets[0] != sets[1]).any(-1)                        # [L, b, s]
+    for row in range(b):
+        hit = diff[:, row].any(0).nonzero()
+        if not hit.numel():
+            continue
+        pos = int(hit[0])
+        layer = int(diff[:, row, pos].nonzero()[0])
+        logits = cpu_aux[layer]["router_logits"].reshape(b, s, -1)[row, pos]
+        top = logits.double().sort(descending=True).values
+        assert float(top[k - 1] - top[k]) <= \
+            LM_NEAR_TIE * float(top.abs().max()), (row, pos, layer)
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("gemma-2b", torch.float32), ("gemma-2b", torch.bfloat16),
+    ("olmoe-1b-7b", torch.float32), ("olmoe-1b-7b", torch.bfloat16)])
+def test_lm_loss_and_gradient_on_the_card_match_the_cpu(arch, dtype):
+    """``models/transformer.py: loss_fn`` (remat, two head chunks) at the
+    smoke config on the card against the CPU from the same parameters:
+    the loss and every leaf's gradient within 1e-5 normwise at fp32 and
+    5e-2 at bf16 (the CPU tests' limits against the reference), two card
+    passes bitwise equal, and no kernel launched. olmoe-1b-7b at bf16 may
+    route a near-tied token to another expert set on the card than on the
+    CPU, and a flip moves the whole gradient, so it is held as
+    ``tests/test_torch_lm_train.py`` holds the port against the reference:
+    the routing up to each row's first flip, which must be a near-tie, the
+    loss to the CPU's bf16 loss within 5e-2 relative, and every leaf of
+    the gradient to the CPU's fp32 gradient within 5e-2 normwise."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
+    b, s = 2, 128
+    cfg = dataclasses.replace(get_arch(arch).make_smoke_config(),
+                              compute_dtype=dtype)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    flips = cfg.moe and dtype == torch.bfloat16
+    cpu0 = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(lm_batches(0, cfg.vocab_size, b, s)).items()}
+
+    def grads(dev, c=cfg):
+        leaves = [x.to(dev, copy=True).requires_grad_()
+                  for x in tree_leaves(cpu0)]
+        loss, _ = tf.loss_fn(tree_unflatten(cpu0, leaves),
+                             tree_map(lambda x: x.to(dev), batch), c)
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    def routing(dev):
+        aux = []
+        with torch.no_grad():
+            tf.forward(tree_map(lambda x: x.to(dev), cpu0),
+                       batch["tokens"].to(dev), cfg, moe_aux=aux)
+        return aux
+
+    def normwise(a, b):
+        return float((a.cpu().double() - b.double()).norm()
+                     / b.double().norm())
+
+    before = (topk_mips.launches, gather_scores.launches,
+              embedding_bag.launches, fm_interaction.launches)
+    card = grads(torch.device("cuda"))
+    assert (topk_mips.launches, gather_scores.launches,
+            embedding_bag.launches, fm_interaction.launches) == before
+    for x, y in zip(card, grads(torch.device("cuda"))):
+        assert torch.equal(x, y)
+    cpu = grads(torch.device("cpu"))
+    if flips:
+        _lm_first_flips_are_near_ties(routing(torch.device("cuda")),
+                                      routing(torch.device("cpu")), b, s,
+                                      cfg.moe_top_k)
+        assert normwise(card[0], cpu[0]) <= tol
+        card, cpu = card[1:], grads(torch.device("cpu"), dataclasses.replace(
+            cfg, compute_dtype=torch.float32))[1:]
+    for x, y in zip(card, cpu):
+        err = normwise(x, y)
+        assert err <= tol, err

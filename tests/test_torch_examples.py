@@ -1,20 +1,23 @@
-"""The port's streaming, observability and recsys retrieval examples, run
-on the CPU (the first two at a small size) as
+"""The port's streaming, observability, recsys retrieval and LM training
+examples, run on the CPU (the first two at a small size) as
 ``tests/test_torch_pipeline.py`` runs ``examples/async_serving_torch.py``:
 each exits 0 and prints what its reference prints. One intra-op thread: the examples' threads and the
 test workers would oversubscribe the CPU."""
 
+import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(name, *args):
+def _run(name, *args, **env_extra):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "OMP_NUM_THREADS": "1"}
+           "OMP_NUM_THREADS": "1", **env_extra}
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / name), "--device", "cpu",
          *args], capture_output=True, text=True, env=env, timeout=300)
@@ -55,3 +58,22 @@ def test_recsys_retrieval_example_runs_on_cpu():
     assert "bta's top-100 equals naive's: True" in out
     assert sum(x.strip().startswith("query ") for x in out.splitlines()) \
         == 4
+
+
+def test_train_lm_example_runs_on_cpu():
+    """The tiny LM trained for 3 steps through ``Trainer`` (its losses
+    finite; its checkpoint in a fresh temporary directory, here under a
+    ``TMPDIR`` the test removes), then 8 greedy tokens through the exact
+    top-8 head."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run("train_lm_torch.py", "--tiny", "--steps", "3", TMPDIR=tmp)
+        ckpt = next(x for x in out.splitlines() if x.startswith("trained"))
+        assert ckpt.split("checkpoints in ")[1].startswith(tmp)
+        assert os.listdir(ckpt.split("checkpoints in ")[1]) == \
+            ["step_0000000003"]
+    assert "model: lm-tiny, " in out
+    first, last = (float(v) for v in
+                   ckpt.split("loss ")[1].split(";")[0].split(" -> "))
+    assert math.isfinite(first) and math.isfinite(last)
+    ids = out.split("last top-8 ids: ")[1].strip()
+    assert len(json.loads(ids)) == 8

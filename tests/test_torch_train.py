@@ -527,8 +527,7 @@ def test_launcher_trains_deepfm_on_the_cpu_and_resumes(capsys):
         assert again.step == 24 and again.history[0]["step"] == 20
 
 
-@pytest.mark.parametrize("arch,item", [("gemma-2b", "ROADMAP A7.4"),
-                                       ("pna", "ROADMAP A7.6")])
+@pytest.mark.parametrize("arch,item", [("pna", "ROADMAP A7.6")])
 def test_launcher_refuses_the_families_not_ported_yet(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         launch_train.main(["--arch", arch, "--device", "cpu"])
