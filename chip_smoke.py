@@ -286,7 +286,43 @@ checkout. In order, it
     profiled step (busy share, launches, time by kernel and by
     ``LM_TRAIN_PROFILE_GROUPS``) and the phase's seconds, with the card's
     name and power limit (``lm train ...`` and ``lm train: {json}``);
-19. prints one ``{"kernels": [...]}`` line and, last, the device line
+19. the GNN training path: PNA at its published width and depth (4
+    layers, d_hidden 75, fp32; random weights from SEED drawn on the CPU
+    and copied) on three ``GNN_SHAPES`` cells, with every kernel count set
+    to 0 just before and read just after each part (each must stay 0: the
+    reference computes PNA outside any Pallas kernel): (a)
+    ``full_graph_sm``, ``random_graph`` of 2,708 nodes, 10,556 edges,
+    1,433 features and 7 classes: ``forward``, ``loss_fn`` and every
+    leaf's gradient on the card against the CPU (``gnn_check``: each
+    within ``GNN_TOL`` normwise or ``GNN_F32_FACTOR`` times the CPU's own
+    fp32 error against the float64 function, whichever is larger), two
+    card backward passes bitwise
+    equal, then ``GNN_STEPS`` AdamW steps through ``Trainer`` (lr 3e-3,
+    warmup 10) twice from the same start, bitwise equal, every loss
+    finite; (b) ``molecule``, batches of 128 graphs of 30 nodes and 64
+    edges (14 features, 2 classes, the ``graph_ids`` readout), checked the
+    same way over ``GNN_MOL_STEPS`` steps of fresh batches; (c)
+    ``minibatch_lg``: ``random_graph`` of 232,965 nodes, 114,615,892 edges
+    and 602 features built once on the host, ``NeighborSampler`` drawing
+    1,024 seeds a step with fanouts (15, 10), each draw padded by
+    ``pad_subgraph`` to 169,984 nodes and 168,960 edges; the first
+    draw checked against the CPU as in (a) padded to a power of two at
+    least twice its real size (the cell's padding costs the CPU 30-45 s),
+    the card's logits and loss at the cell's padding within ``GNN_TOL`` of
+    that small padding's, each gradient leaf there held to the small
+    padding's by the rule that holds those to the CPU, two passes there
+    bitwise equal, then ``GNN_STEPS`` steps twice (the seeds' and the
+    sampler's generators from SEED each time), bitwise equal;
+    (d) ``hashed_lookup`` (2 probes) at DeepFM's table width (1,000,000 x
+    10) over 65,536 x 39 ids spread over the int32 range: its rows and
+    the table's gradient bitwise the CPU's. It prints each cell's step
+    median ms (steps 2-N) against the reference's FLOP count at the fp32
+    peak (``gnn_flops``), peak memory and one profiled step (busy share,
+    launches, time by kernel), (c)'s host seconds to build the graph and
+    the sampler, the sampler's ms a step and each subgraph's real node
+    and edge counts, with the card's name and power limit (``gnn ...``
+    and ``gnn: {json}``);
+20. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -295,6 +331,7 @@ Any failed phase exits non-zero without the device line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import subprocess
@@ -470,6 +507,26 @@ LM_MATMUL_PARAMS = 2_506_096_640
 LM_TRAIN_PROFILE_GROUPS = {"GEMMs": "nvjet", "fp32 adds": "CUDAFunctor_add",
                            "copies and casts": "copy_kernel",
                            "exp": "exp_kernel", "reductions": "reduce_kernel"}
+# The GNN phase: PNA at its published width and depth (4 layers, d_hidden
+# 75, fp32) on the GNN_SHAPES cells full_graph_sm (GNN_STEPS AdamW steps
+# over one graph), molecule (GNN_MOL_STEPS steps over fresh batches) and
+# minibatch_lg (GNN_STEPS sampled, padded subgraphs of the large graph);
+# the launcher's AdamW. The card is held to the CPU (logits, loss, each
+# gradient leaf) at GNN_TOL normwise or GNN_F32_FACTOR times the CPU's own
+# fp32 error, whichever is larger: the std aggregator cancels, and
+# tests/test_torch_gnn.py holds the port to the reference the same way.
+# hashed_lookup at DeepFM's table width, HASH_BATCH x HASH_FIELDS ids.
+# A profiled step's device time by group: printed name -> a substring of
+# the CUDA kernels' names.
+GNN_ARCH = "pna"
+GNN_STEPS, GNN_MOL_STEPS = 8, 4
+GNN_TOL, GNN_F32_FACTOR = 1e-5, 10
+GNN_PROFILE_GROUPS = {"GEMMs": "gemm", "sorts": "RadixSort",
+                      "scatter_reduce and gather": "_scatter_gather",
+                      "fp64 adds (segment sums)": "CUDAFunctor_add<double>",
+                      "fp32 adds": "CUDAFunctor_add<float>",
+                      "indexing": "index_elementwise"}
+HASH_ROWS, HASH_DIM, HASH_BATCH, HASH_FIELDS = 1_000_000, 10, 65_536, 39
 # H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores;
 # dense bf16 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -3461,6 +3518,374 @@ def lm_train_path(dev) -> None:
     print("lm train: " + json.dumps(rec), flush=True)
 
 
+def gnn_flops(cfg, N: int, E: int) -> float:
+    """The reference's FLOP count of one PNA training step over ``N``
+    nodes and ``E`` edges (``src/repro/launch/cells.py:255``): the forward
+    and the two products of the backward of each layer's message GEMM
+    (``[E, 2d] x [2d, d]``) and update GEMM (``[N, 12d] x [12d, d]``), and
+    of the encoder's (``[N, d_feat] x [d_feat, d]``)."""
+    d = cfg.d_hidden
+    return 3.0 * cfg.n_layers * (2.0 * E * (2 * d) * d
+                                 + 2.0 * N * (12 * d) * d) \
+        + 6.0 * N * cfg.d_in * d
+
+
+def gnn_check(label, cfg, params, graph, dev):
+    """``forward``, ``loss_fn`` and every leaf's gradient on the card,
+    counted (no kernel may launch), against the same on the CPU: the
+    logits, the loss and each gradient leaf within ``GNN_TOL`` normwise or
+    ``GNN_F32_FACTOR`` times the CPU's own fp32 error (its distance from
+    the same function at float64, computed on the card: on the CPU it
+    took 44.5 s at ``minibatch_lg``), whichever is larger; and a second
+    card pass bitwise equal. Returns the errors and each side's
+    seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.train.tree import tree_map
+
+    def loss(c):
+        return lambda p, b: gnn.loss_fn(p, b, c)
+
+    def on(where, dtype=torch.float32):
+        return tree_map(lambda x: x.to(where, dtype), params)
+
+    t0 = time.perf_counter()
+    p_card = on(dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    with torch.no_grad():
+        logits = gnn.forward(p_card, graph, cfg)
+    l1, g1 = grads(loss(cfg), p_card, graph)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(not any(launches.values()),
+          f"GNN {label}: launched a kernel {launches}")
+    l2, g2 = grads(loss(cfg), p_card, graph)
+    check(torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k]) for k in g1),
+          f"GNN {label}: two backward passes on the card differ")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(l1)),
+          f"GNN {label}: logits or loss not finite")
+    secs = {"card": time.perf_counter() - t0}
+    sides = {}
+    for name, where, dtype in (("cpu", "cpu", torch.float32),
+                               ("fp64", dev, torch.float64)):
+        t0 = time.perf_counter()
+        p = on(where, dtype)
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        with torch.no_grad():
+            lg = gnn.forward(p, graph, c)
+        lo, gr = grads(loss(c), p, graph)
+        sides[name] = {"logits": lg, "loss": lo.reshape(1), **gr}
+        secs[name] = time.perf_counter() - t0
+    card = {"logits": logits, "loss": l1.reshape(1), **g1}
+    errs, cpu_own = {}, {}
+    for k, want in sides["cpu"].items():
+        errs[k] = normwise(card[k], want)
+        cpu_own[k] = normwise(want, sides["fp64"][k])
+        check(errs[k] <= max(GNN_TOL, GNN_F32_FACTOR * cpu_own[k]),
+              f"GNN {label}: {k} on the card vs the CPU {errs[k]:.3g} (the "
+              f"CPU's own fp32 error {cpu_own[k]:.3g})")
+    return {"card_vs_cpu": errs, "cpu_fp32_vs_fp64": cpu_own,
+            "loss_value": float(l1), "s": secs}
+
+
+def gnn_train(label, cfg, params, make_iter, steps: int, dev):
+    """``steps`` AdamW steps (the launcher's schedule) through ``Trainer``
+    from a copy of ``params``, counted (no kernel may launch); every loss
+    finite, and a second run from the same start bitwise equal (losses,
+    parameters, both moments). Returns the first run's ``Trainer``, its
+    peak memory above what was allocated when it started (earlier phases'
+    tensors included there) and its wall seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves, tree_map
+    opt = OptimizerConfig(kind="adamw", lr=TRAIN_LR,
+                          warmup_steps=TRAIN_WARMUP, total_steps=steps)
+
+    def run():
+        tr = Trainer(lambda p, b: gnn.loss_fn(p, b, cfg),
+                     tree_map(lambda x: x.to(dev, copy=True), params), opt,
+                     PrefetchLoader(make_iter),
+                     TrainerConfig(total_steps=steps, log_every=1,
+                                   ckpt_every=steps + 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counters()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        tr.data.close()
+        check(not any(launches.values()),
+              f"GNN {label} training: launched a kernel {launches}")
+        return tr, torch.cuda.max_memory_allocated() - base, wall
+
+    tr, peak, wall = run()
+    losses = [h["loss"] for h in tr.history]
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"GNN {label} training: losses {losses}")
+    again, _, _ = run()
+    check([h["loss"] for h in again.history] == losses
+          and all(torch.equal(a, b) for a, b in zip(
+              tree_leaves({"p": tr.params, "o": tr.opt_state}),
+              tree_leaves({"p": again.params, "o": again.opt_state}))),
+          f"GNN {label} training: two {steps}-step runs differ")
+    return tr, peak, wall
+
+
+def gnn_cell_record(label, cfg, tr, peak, wall, N, E, batch):
+    """The cell's step times against its FLOP bound, peak memory, and one
+    profiled step (busy share, launches, time by kernel), printed."""
+    import numpy as np
+    step_ms = [1e3 * h["step_time"] for h in tr.history]
+    med = float(np.median(step_ms[1:]))
+    flops = gnn_flops(cfg, N, E)
+    bound_ms = 1e3 * flops / FP32_FLOPS_PER_S
+    losses = [h["loss"] for h in tr.history]
+    prof = profile_call(f"one PNA {label} training step",
+                        lambda: tr.train_step(tr.params, tr.opt_state,
+                                              batch),
+                        GNN_PROFILE_GROUPS, cpu=False)
+    rec = {"nodes": N, "edges": E, "steps": len(step_ms), "losses": losses,
+           "step_ms": step_ms, "step_ms_median": med, "flops": flops,
+           "bound_ms": bound_ms, "peak_bytes": peak, "run_s": wall}
+    if prof is not None:
+        rec["step_profile"] = {key: prof[key] for key in
+                               ("wall_us", "busy_us", "launches")}
+    print(f"gnn {label}: {len(step_ms)} steps over {N} nodes and {E} edges "
+          f"in {wall:.1f} s, losses {[round(x, 4) for x in losses]}; step "
+          f"median (steps 2-{len(step_ms)}) {med:.3f} ms (all "
+          f"{[round(x, 3) for x in step_ms]}); bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.3f} GFLOP at 67 TFLOP/s fp32): "
+          f"{med / bound_ms:.1f}x; peak memory {peak / 1e9:.3f} GB",
+          flush=True)
+    return rec
+
+
+def gnn_path(dev) -> None:
+    """Step 19 of the module docstring."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+    from repro_torch.models import gnn
+    from repro_torch.models.embedding import hashed_lookup
+
+    t_phase = time.perf_counter()
+    gpu = gpu_name_and_power()
+    spec = get_arch(GNN_ARCH)
+    recs = {}
+
+    def config(cell):
+        d = cell.dims
+        cfg = spec.make_config(d_feat=d["d_feat"], n_classes=d["n_classes"],
+                               task=d.get("task", "node"))
+        check((cfg.n_layers, cfg.d_hidden, cfg.compute_dtype)
+              == (4, 75, torch.float32), f"PNA config {cfg}")
+        return cfg, gnn.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                    "cpu")
+
+    # -- (a) full_graph_sm: one power-law graph, every step ------------------
+    t0 = time.perf_counter()
+    cell = spec.shape("full_graph_sm")
+    d = cell.dims
+    cfg, params = config(cell)
+    graph = random_graph(np.random.default_rng(SEED), d["n_nodes"],
+                         d["n_edges"], d["d_feat"], d["n_classes"])
+    errs = gnn_check("full_graph_sm", cfg, params, graph, dev)
+    tr, peak, wall = gnn_train("full_graph_sm", cfg, params,
+                               lambda: itertools.repeat(graph), GNN_STEPS,
+                               dev)
+    batch = tr.to_device(graph)
+    recs["full_graph_sm"] = {**gnn_cell_record(
+        "full_graph_sm", cfg, tr, peak, wall, d["n_nodes"], d["n_edges"],
+        batch), "errors": errs, "s": time.perf_counter() - t0}
+    print(f"gnn full_graph_sm: loss at init {errs['loss_value']:.4f}; card "
+          f"vs CPU {json.dumps(errs)}; "
+          f"two card backward passes and two {GNN_STEPS}-step runs bitwise "
+          f"equal", flush=True)
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # -- (b) molecule: 128 graphs of 30 nodes a batch, graph readout ---------
+    t0 = time.perf_counter()
+    cell = spec.shape("molecule")
+    d = cell.dims
+    cfg, params = config(cell)
+
+    def molecules():
+        rng = np.random.default_rng(SEED)
+        while True:
+            yield molecule_batch(rng, d["batch"], d["n_nodes"], d["n_edges"],
+                                 d["d_feat"], d["n_classes"])
+
+    first = next(molecules())
+    errs = gnn_check("molecule", cfg, params, first, dev)
+    tr, peak, wall = gnn_train("molecule", cfg, params, molecules,
+                               GNN_MOL_STEPS, dev)
+    N, E = d["batch"] * d["n_nodes"], d["batch"] * d["n_edges"]
+    batch = tr.to_device(first)
+    recs["molecule"] = {**gnn_cell_record(
+        "molecule", cfg, tr, peak, wall, N, E, batch), "errors": errs,
+        "s": time.perf_counter() - t0}
+    print(f"gnn molecule: card vs CPU "
+          f"{json.dumps(errs)}; "
+          f"two card backward passes and two {GNN_MOL_STEPS}-step runs "
+          f"bitwise equal", flush=True)
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # -- (c) minibatch_lg: the large graph built once on the host, sampled ---
+    t0 = time.perf_counter()
+    cell = spec.shape("minibatch_lg")
+    d = cell.dims
+    cfg, params = config(cell)
+    big = random_graph(np.random.default_rng(SEED), d["n_nodes"],
+                       d["n_edges"], d["d_feat"], d["n_classes"])
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sampler = gnn.NeighborSampler(big["edge_src"], big["edge_dst"],
+                                  d["n_nodes"], seed=SEED)
+    sampler_s = time.perf_counter() - t1
+    fanouts = (d["fanout0"], d["fanout1"])
+    sample_ms, real = [], []
+
+    def subgraphs():
+        # the seeds' and the sampler's generators from SEED at every
+        # start, the latter in a copy: a closed loader's thread may still
+        # draw on its own
+        rng = np.random.default_rng(SEED)
+        draw = copy.copy(sampler)
+        draw.rng = np.random.default_rng(SEED)
+        while True:
+            t = time.perf_counter()
+            seeds = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+            sub = draw.sample(seeds, fanouts)
+            out = gnn.pad_subgraph(sub, big["nodes"], big["labels"],
+                                   d["pad_nodes"], d["pad_edges"])
+            sample_ms.append(1e3 * (time.perf_counter() - t))
+            real.append((len(sub["node_ids"]), len(sub["edge_src"])))
+            yield out
+
+    # one draw checked against the CPU padded to a power of two at least
+    # twice its real size, not to the cell's 169,984 nodes (a CPU pass at
+    # that padding took 29.2 s at fp32 and 44.5 s at float64 on the
+    # card's host); on the card the cell's padding is held to that small
+    # padding: the logits and the loss within GNN_TOL, each gradient leaf
+    # as the small padding's is held to the CPU, and two passes bitwise
+    sub = sampler.sample(np.random.default_rng(SEED).choice(
+        d["n_nodes"], d["batch_nodes"], replace=False), fanouts)
+    n0, e0 = len(sub["node_ids"]), len(sub["edge_src"])
+    small = gnn.pad_subgraph(sub, big["nodes"], big["labels"],
+                             1 << (2 * n0 - 1).bit_length(),
+                             1 << (2 * e0 - 1).bit_length())
+    first = gnn.pad_subgraph(sub, big["nodes"], big["labels"],
+                             d["pad_nodes"], d["pad_edges"])
+    errs = gnn_check("minibatch_lg", cfg, params, small, dev)
+    p_card = tree_to(params, dev)
+
+    def loss(p, b):
+        return gnn.loss_fn(p, b, cfg)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    with torch.no_grad():
+        logits = [gnn.forward(p_card, b, cfg)[:n0] for b in (small, first)]
+    pads = [grads(loss, p_card, b) for b in (small, first, first)]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(not any(launches.values()),
+          f"GNN minibatch_lg padding: launched a kernel {launches}")
+    check(torch.equal(pads[1][0], pads[2][0])
+          and all(torch.equal(pads[1][1][k], pads[2][1][k])
+                  for k in pads[1][1]),
+          "GNN minibatch_lg: two backward passes at the cell's padding "
+          "differ")
+    pad = {"logits": normwise(logits[1], logits[0]),
+           "loss": normwise(pads[1][0].reshape(1), pads[0][0].reshape(1))}
+    check(max(pad.values()) <= GNN_TOL,
+          f"GNN minibatch_lg: the cell's padding moved the card's logits "
+          f"or loss {pad}")
+    for k, want in pads[0][1].items():
+        pad[k] = normwise(pads[1][1][k], want)
+        own = errs["cpu_fp32_vs_fp64"][k]
+        check(pad[k] <= max(GNN_TOL, GNN_F32_FACTOR * own),
+              f"GNN minibatch_lg: the cell's padding moved {k}'s gradient "
+              f"{pad[k]:.3g} (the CPU's own fp32 error {own:.3g})")
+    errs["padding"] = pad
+    errs["check_pad"] = [len(small["nodes"]), len(small["edge_src"])]
+    del p_card, logits, pads
+    tr, peak, wall = gnn_train("minibatch_lg", cfg, params, subgraphs,
+                               GNN_STEPS, dev)
+    batch = tr.to_device(first)
+    recs["minibatch_lg"] = {**gnn_cell_record(
+        "minibatch_lg", cfg, tr, peak, wall, d["pad_nodes"], d["pad_edges"],
+        batch), "errors": errs, "build_s": build_s,
+        "sampler_s": sampler_s, "sample_ms": sample_ms[:GNN_STEPS],
+        "real_nodes_edges": real[:GNN_STEPS], "s": time.perf_counter() - t0}
+    print(f"gnn minibatch_lg: the graph ({d['n_nodes']} nodes, "
+          f"{d['n_edges']} edges, d_feat {d['d_feat']}) built on the host in "
+          f"{build_s:.1f} s, the sampler in {sampler_s:.1f} s; sampling and "
+          f"padding a step {np.median(sample_ms[:GNN_STEPS]):.1f} ms (all "
+          f"{[round(x, 1) for x in sample_ms[:GNN_STEPS]]}) against the "
+          f"device step's {recs['minibatch_lg']['step_ms_median']:.2f} ms; "
+          f"real (nodes, edges) a subgraph {real[:GNN_STEPS]}; card vs CPU "
+          f"{json.dumps(errs)}",
+          flush=True)
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # -- (d) hashed_lookup at DeepFM's table width, card against the CPU -----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    table = torch.from_numpy(rng.standard_normal(
+        (HASH_ROWS, HASH_DIM)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (HASH_BATCH,
+                                                            HASH_FIELDS),
+                                        dtype=np.int64).astype(np.int32))
+    ids[0, :4] = torch.tensor([0, -1, 2 ** 31 - 1, -2 ** 31])
+    cot = torch.from_numpy(rng.standard_normal(
+        (HASH_BATCH, HASH_FIELDS, HASH_DIM)).astype(np.float32))
+
+    def lookup(where):
+        t = table.to(where).requires_grad_()
+        rows = hashed_lookup(t, ids.to(where))
+        g, = torch.autograd.grad(rows, t, cot.to(where))
+        return rows.detach(), g
+
+    torch.cuda.synchronize()
+    zero_counters()
+    rows_card, g_card = lookup(dev)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(not any(launches.values()),
+          f"hashed_lookup: launched a kernel {launches}")
+    rows_cpu, g_cpu = lookup("cpu")
+    check(torch.equal(rows_card.cpu(), rows_cpu)
+          and torch.equal(g_card.cpu(), g_cpu),
+          "hashed_lookup on the card is not bitwise the CPU's (rows or "
+          "gradient)")
+    hash_s = time.perf_counter() - t0
+    print(f"gnn hashed_lookup: {HASH_BATCH} x {HASH_FIELDS} ids over the "
+          f"int32 range into {HASH_ROWS} x {HASH_DIM}, 2 probes: rows and "
+          f"the table's gradient bitwise the CPU's ({hash_s:.1f} s)",
+          flush=True)
+
+    rec = {"arch": GNN_ARCH, "cells": recs, "hashed_lookup_s": hash_s,
+           "launches": read_counters(),
+           "phase_s": time.perf_counter() - t_phase, "card": gpu}
+    print(f"gnn at {gpu}: B1-B6 launched 0 times in every part; phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    print("gnn: " + json.dumps(rec), flush=True)
+
+
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
     """Step 15 of the module docstring. ``results`` holds the LSHTC-like
     ``naive`` and ``norm`` runs of the main path; ``cpu_ctx`` is a CPU
@@ -3907,6 +4332,8 @@ def run(dev, kind: str) -> None:
     scout_cut_path(dev)
     torch.cuda.empty_cache()
     lm_train_path(dev)
+    torch.cuda.empty_cache()
+    gnn_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())

@@ -7,7 +7,9 @@ hand-written CUDA kernel engine ``topk_mips``) -> ``TopKServer.query``.
 It also serves the recsys models (``models.recsys``: the query tower as
 the SEP-LR query, exact retrieval, then ``TwoStageRanker``'s full-model
 re-rank) and the dense LMs (``models.transformer``: ``prefill``, then
-``serve_step`` through the exact top-K vocab head).
+``serve_step`` through the exact top-K vocab head), and trains the
+recsys models, the LMs and the PNA GNN (``models.gnn``) through
+``launch.train``.
 
 Every entry point takes ``device=None``, which means ``"cuda"``: the port
 runs on the card unless the caller asks for the CPU, and it raises rather

@@ -1,15 +1,15 @@
 """Registry of the ported architectures: the five LMs (three dense, two
-MoE) and the four recsys models, each a published configuration with its
-smoke configuration and shape cells. The GNN comes with its model."""
+MoE), the GNN (PNA) and the four recsys models, each a published
+configuration with its smoke configuration and shape cells."""
 from repro_torch.configs import (dcn_v2, deepfm, deepseek_67b, dlrm_rm2, fm,
                                  gemma_2b, llama4_scout_17b_a16e, olmoe_1b_7b,
-                                 stablelm_3b)
+                                 pna, stablelm_3b)
 from repro_torch.configs.base import ArchSpec
 
 REGISTRY = {spec.arch_id: spec
             for spec in [deepseek_67b.SPEC, gemma_2b.SPEC, stablelm_3b.SPEC,
                          olmoe_1b_7b.SPEC, llama4_scout_17b_a16e.SPEC,
-                         deepfm.SPEC, dcn_v2.SPEC, dlrm_rm2.SPEC, fm.SPEC]}
+                         pna.SPEC, deepfm.SPEC, dcn_v2.SPEC, dlrm_rm2.SPEC, fm.SPEC]}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -1,9 +1,8 @@
 """Architecture registry types: each architecture is a selectable config.
 
 An ArchSpec pairs the exact published configuration with its input-shape
-set, plus a reduced smoke configuration exercised by the CPU tests. The
-recsys family and the dense LMs are ported so far; the GNN shape set comes
-with its model.
+set, plus a reduced smoke configuration exercised by the CPU tests: the
+LMs, the GNN and the recsys family, each with its shape set.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ class ShapeCell:
     """One (architecture x input-shape) cell."""
     name: str
     kind: str                  # lm_train | lm_prefill | lm_decode |
-    #                            recsys_train | recsys_serve |
+    #                            gnn_train | recsys_train | recsys_serve |
     #                            recsys_retrieval
     dims: Dict[str, int]
 
@@ -25,7 +24,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                        # lm | recsys
+    family: str                        # lm | gnn | recsys
     source: str                        # the published configuration
     make_config: Callable[..., object]     # full config
     make_smoke_config: Callable[..., object]
@@ -46,6 +45,24 @@ LM_SHAPES: Tuple[ShapeCell, ...] = (
     # long_500k is a DECODE shape (1 token against a 512k KV cache):
     # linear in context, so full-attention archs run it.
     ShapeCell("long_500k", "lm_decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+GNN_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("full_graph_sm", "gnn_train",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433,
+               "n_classes": 7}),
+    ShapeCell("minibatch_lg", "gnn_train",
+              {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+               "fanout0": 15, "fanout1": 10, "d_feat": 602, "n_classes": 41,
+               # padded subgraph sizes for the sampled-training step:
+               # seeds + 15*seeds + 10*15*seeds nodes; edges 15s + 150s
+               "pad_nodes": 1024 * (1 + 15 + 150), "pad_edges": 1024 * (15 + 150)}),
+    ShapeCell("ogb_products", "gnn_train",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100,
+               "n_classes": 47}),
+    ShapeCell("molecule", "gnn_train",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 14,
+               "n_classes": 2, "task": "graph"}),
 )
 
 RECSYS_SHAPES: Tuple[ShapeCell, ...] = (

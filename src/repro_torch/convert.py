@@ -13,13 +13,17 @@ a chosen device, so that both packages compute over the identical state:
   ``prefix_depth``) -> :class:`ListMajorLayout`
 
 :func:`params_from_reference` (also named
-``recsys_params_from_reference`` and ``transformer_params_from_reference``)
+``recsys_params_from_reference``, ``transformer_params_from_reference``
+and ``gnn_params_from_reference``)
 carries the reference's model parameters across as the same tree of
 tensors: the recsys trees (``repro.models.recsys.init_params``: a nested
 dict of arrays with MLP lists of ``{"w", "b"}``) and the LM's
 (``repro.models.transformer.init_params``: ``embed``, ``final_norm``,
 ``unembed`` and the ``[L, ...]`` layer stack, a MoE config's
-``router``/``moe_gate``/``moe_up``/``moe_down`` included), and the
+``router``/``moe_gate``/``moe_up``/``moe_down`` included), the PNA
+GNN's (``repro.models.gnn.init_params``: ``enc_w``, ``enc_b``, ``dec_w``,
+``dec_b`` and the ``layers`` dict of ``[L, ...]`` stacks; the generic
+walk of nested dicts carries it, no case of its own), and the
 reference's ``MoEParams`` (``repro.models.moe.init_moe``), which comes
 across as the port's :class:`repro_torch.models.moe.MoEParams`. Dense
 weights keep the reference's ``[in, out]`` layout (the port applies them
@@ -105,6 +109,7 @@ def params_from_reference(params: Any, device=None) -> Any:
 # the names each model family's callers use
 recsys_params_from_reference = params_from_reference
 transformer_params_from_reference = params_from_reference
+gnn_params_from_reference = params_from_reference
 
 
 def opt_state_from_reference(state: Any, device=None) -> OptState:

@@ -1,6 +1,7 @@
-"""Synthetic corpora shaped like the paper's datasets, LM token streams and
-recsys click logs: numpy copies of the reference's ``data/synthetic.py`` generators, so
-the same generator state gives bitwise-identical arrays in both packages.
+"""Synthetic corpora shaped like the paper's datasets, LM token streams,
+recsys click logs and graphs: numpy copies of the reference's
+``data/synthetic.py`` generators, so the same generator state gives
+bitwise-identical arrays in both packages.
 
 The paper's datasets (MovieLens, BookCrossing, Audioscrobbler, Uniprot,
 LSHTC) cannot be downloaded here; these generators reproduce their shape
@@ -145,3 +146,59 @@ def recsys_batches(seed: int, n_dense: int, n_sparse: int, vocab_per_field: int,
         label = (rng.random(local) < prob).astype(np.float32)
         yield {"dense": dense, "sparse": sparse, "label": label}
         step += 1
+
+
+# ---------------------------------------------------------------------------
+# Graphs
+# ---------------------------------------------------------------------------
+
+
+def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,
+                 d_feat: int, n_classes: int = 7,
+                 power_law: bool = True) -> Dict[str, np.ndarray]:
+    """Power-law (preferential-attachment-ish) graph with planted community
+    labels correlated with features (so GNN accuracy is learnable)."""
+    if power_law:
+        w = rng.zipf(1.6, n_nodes).astype(np.float64)
+        p = w / w.sum()
+        src = rng.choice(n_nodes, n_edges, p=p).astype(np.int32)
+        dst = rng.choice(n_nodes, n_edges, p=p).astype(np.int32)
+    else:
+        src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+        dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    centers = rng.standard_normal((n_classes, d_feat)).astype(np.float32)
+    feats = centers[labels] + 0.5 * rng.standard_normal(
+        (n_nodes, d_feat)).astype(np.float32)
+    return {
+        "nodes": feats,
+        "edge_src": src,
+        "edge_dst": dst,
+        "edge_mask": np.ones(n_edges, bool),
+        "node_mask": np.ones(n_nodes, bool),
+        "labels": labels,
+    }
+
+
+def molecule_batch(rng: np.random.Generator, n_graphs: int, nodes_per: int,
+                   edges_per: int, d_feat: int, n_classes: int = 2) -> Dict:
+    """Batched small graphs flattened with offsets (molecule cells)."""
+    N = n_graphs * nodes_per
+    E = n_graphs * edges_per
+    offs = np.repeat(np.arange(n_graphs) * nodes_per, edges_per)
+    src = (rng.integers(0, nodes_per, E) + offs).astype(np.int32)
+    dst = (rng.integers(0, nodes_per, E) + offs).astype(np.int32)
+    labels = rng.integers(0, n_classes, n_graphs).astype(np.int32)
+    centers = rng.standard_normal((n_classes, d_feat)).astype(np.float32)
+    feats = (np.repeat(centers[labels], nodes_per, axis=0)
+             + 0.7 * rng.standard_normal((N, d_feat))).astype(np.float32)
+    return {
+        "nodes": feats,
+        "edge_src": src,
+        "edge_dst": dst,
+        "edge_mask": np.ones(E, bool),
+        "node_mask": np.ones(N, bool),
+        "labels": labels,
+        "graph_ids": np.repeat(np.arange(n_graphs, dtype=np.int32), nodes_per),
+        "n_graphs": n_graphs,
+    }

@@ -35,12 +35,19 @@ The reference has no backward kernel either: it differentiates its jnp
 segmented sum in a fixed order, where ``index_add_`` and the backward of
 advanced indexing may add duplicate rows with atomics in an order that
 changes from run to run on the card.
+
+**Segment sums.** :func:`segment_sum` is ``jax.ops.segment_sum`` on
+the same sort and segmented sum (:class:`Segments`, which
+:func:`row_grad` calls too): ids outside ``[0, num_segments)`` are
+dropped, and the gradient is a gather. The GNN's aggregations and
+readout run on it (:mod:`repro_torch.models.gnn`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -99,39 +106,116 @@ def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rows.masked_fill_(~valid[..., None], float("nan"))
 
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """Segment ids sorted once, for any number of deterministic segmented
+    sums over them (:func:`segments`): ``ids`` each position's segment
+    (``num_segments`` for a dropped position: a sink row cut off at the
+    end), ``order`` the stable sort of ``ids``, ``keys`` the sorted ids,
+    ``rank`` each sorted position's place in its run of equal keys,
+    ``last`` whether it ends its run, ``longest`` the longest run."""
+    ids: torch.Tensor
+    order: torch.Tensor
+    keys: torch.Tensor
+    rank: torch.Tensor
+    last: torch.Tensor
+    longest: int
+    num_segments: int
+
+    def sum_sorted(self, vals: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The ``[num_segments, d]`` sums in ``dtype`` of ``vals [n, d]``,
+        whose rows are already in ``order``: each run of equal keys summed
+        by a segmented doubling scan (``ceil(log2)`` of the longest run of
+        elementwise steps, each adding the partial sum ``s`` places back
+        within the run), whose order of additions depends on the ids
+        alone, so the sums are bitwise the same on every device. The scan
+        runs in place: ``vals`` is overwritten unless it is cast."""
+        vals = vals.to(dtype)
+        out = vals.new_zeros((self.num_segments + 1, vals.shape[1]))
+        if self.keys.numel() == 0:
+            return out[:self.num_segments]
+        s = 1
+        while s < self.longest:
+            vals[s:] += torch.where((self.rank[s:] >= s)[:, None],
+                                    vals[:-s], 0.0)
+            s *= 2
+        out[self.keys[self.last]] = vals[self.last]
+        return out[:self.num_segments]
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        """``jax.ops.segment_sum`` of ``data [n, ...]`` over these segments
+        (a dropped position adds nothing), summed by :meth:`sum_sorted` in
+        float64 and rounded once to ``data``'s dtype. The GNN's std
+        aggregator takes ``sq / count - mean**2`` of two such sums, which
+        cancels: fp32 partial sums in the scan's order put the PNA smoke
+        config's gradients 4.3e-5 normwise from a float64 run, where
+        XLA's sequential fp32 sums land 1.8e-6 from it and sums rounded
+        once from float64 2.4e-6 (``tests/test_torch_gnn.py``)."""
+        flat = data.reshape(data.shape[0], math.prod(data.shape[1:]))
+        out = self.sum_sorted(flat[self.order], torch.float64)
+        return out.to(data.dtype).reshape((self.num_segments,)
+                                          + data.shape[1:])
+
+    def gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows [num_segments, ...]`` at each position's segment, zeros
+        at a dropped position: the transpose of :meth:`sum`."""
+        pad = rows.new_zeros((1,) + rows.shape[1:])
+        return torch.cat([rows, pad])[self.ids]
+
+
+def segments(ids: torch.Tensor, num_segments: int) -> Segments:
+    """:class:`Segments` of the flat ``ids`` into ``num_segments``
+    segments; an id outside ``[0, num_segments)`` is dropped, as
+    ``jax.ops.segment_sum`` drops it. One stable sort and one host read
+    (the longest run)."""
+    row = ids.reshape(-1).long()
+    row = torch.where((row >= 0) & (row < num_segments), row, num_segments)
+    keys, order = torch.sort(row, stable=True)
+    n = keys.numel()
+    pos = torch.arange(n, device=keys.device)
+    new = torch.ones(n, dtype=torch.bool, device=keys.device)
+    new[1:] = keys[1:] != keys[:-1]
+    # each position's place in its run: minus its run's first position
+    rank = pos - pos[new][torch.cumsum(new, 0) - 1] if n else pos
+    last = torch.ones(n, dtype=torch.bool, device=keys.device)
+    last[:-1] = new[1:]
+    longest = int(rank.max()) + 1 if n else 0
+    return Segments(row, order, keys, rank, last, longest, num_segments)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segs):
+        ctx.segs = segs
+        return segs.sum(data)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.segs.gather(grad), None
+
+
+def segment_sum(data: torch.Tensor, segs: Segments) -> torch.Tensor:
+    """``jax.ops.segment_sum(data, ids, num_segments)`` for ``segs =
+    segments(ids, num_segments)``, deterministic on every device: ids
+    outside ``[0, num_segments)`` are dropped, the sums taken by
+    :meth:`Segments.sum` (no atomics, so two passes on the card are
+    bitwise equal), and the gradient a gather. One sort serves any number
+    of sums over the same ids."""
+    return _SegmentSum.apply(data, segs)
+
+
 def row_grad(ids: torch.Tensor, V: int, src: torch.Tensor,
              per: int) -> torch.Tensor:
     """The dense ``[V, d]`` float32 sum, over every position ``n`` of the
     flat ``ids [N]``, of ``src[n // per]`` (``src [N // per, d]``) into
     row ``ids[n]`` (``V + id`` for an id in ``[-V, 0)``; an id outside
     ``[-V, V)`` adds nothing). Deterministic on every device: the rows
-    are sorted stably, and each run of equal rows is summed by a
-    segmented doubling scan (``ceil(log2)`` of the longest run of
-    elementwise steps, each adding the partial sum ``s`` places back
-    within the run), whose order of additions depends on the ids alone."""
-    d = src.shape[-1]
+    are sorted stably and each run of equal rows summed by
+    :meth:`Segments.sum_sorted`."""
     row = ids.reshape(-1).long()
-    row = torch.where(row < 0, row + V, row)
-    row = torch.where((row >= 0) & (row < V), row, V)   # V: a sink row
-    keys, order = torch.sort(row, stable=True)
-    vals = src.float()[order // per]                      # [N, d]
-    n = keys.numel()
-    out = torch.zeros((V + 1, d), dtype=torch.float32, device=src.device)
-    if n == 0:
-        return out[:V]
-    pos = torch.arange(n, device=keys.device)
-    new = torch.ones(n, dtype=torch.bool, device=keys.device)
-    new[1:] = keys[1:] != keys[:-1]
-    # each position's place in its run: minus its run's first position
-    rank = pos - pos[new][torch.cumsum(new, 0) - 1]
-    longest, s = int(rank.max()) + 1, 1
-    while s < longest:
-        vals[s:] += torch.where((rank[s:] >= s)[:, None], vals[:-s], 0.0)
-        s *= 2
-    last = torch.ones(n, dtype=torch.bool, device=keys.device)
-    last[:-1] = new[1:]
-    out[keys[last]] = vals[last]
-    return out[:V]
+    segs = segments(torch.where(row < 0, row + V, row), V)
+    return segs.sum_sorted(src.float()[segs.order // per])
 
 
 class _TakeRows(torch.autograd.Function):

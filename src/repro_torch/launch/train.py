@@ -5,53 +5,59 @@ It trains the arch's smoke configuration end to end on ``--device``
 (default ``cuda``) with the whole substrate: the seeded synthetic data
 through :class:`repro_torch.data.loader.PrefetchLoader`, AdamW (warmup
 10 steps, cosine to ``--steps``), fault-tolerant checkpoints and resume.
-The LMs (``gemma-2b``, ``olmoe-1b-7b`` and the other ``lm`` archs:
-:func:`repro_torch.models.transformer.loss_fn` over ``lm_batches`` of
-``--batch`` sequences of ``--seq-len`` tokens) and the recsys family
-(``fm``, ``deepfm``, ``dcn-v2``, ``dlrm-rm2``; ``--seq-len`` unread)
-train; the GNN's training is a later slice of the port and raises
-``NotImplementedError``.
+Every family trains: the LMs (``gemma-2b``, ``olmoe-1b-7b`` and the
+other ``lm`` archs: :func:`repro_torch.models.transformer.loss_fn` over
+``lm_batches`` of ``--batch`` sequences of ``--seq-len`` tokens), the GNN
+(``pna``: :func:`repro_torch.models.gnn.loss_fn` over a fresh
+``random_graph`` of 256 nodes and 1,024 edges a step, from ``--seed``;
+``--batch`` and ``--seq-len`` unread) and the recsys family (``fm``,
+``deepfm``, ``dcn-v2``, ``dlrm-rm2``; ``--seq-len`` unread).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data.loader import PrefetchLoader
-from repro_torch.data.synthetic import lm_batches, recsys_batches
+from repro_torch.data.synthetic import (lm_batches, random_graph,
+                                        recsys_batches)
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-# The reference's GNN arch, whose model is not in the port's registry yet
-GNN_ARCHS = ("pna",)
-LATER = {"gnn": "ROADMAP A7.6 (the GNN)"}
+MODELS = {"lm": tf_mod, "gnn": gnn_mod, "recsys": recsys_mod}
 
 
 def build(arch_id: str, batch: int, seq_len: int, seed: int, device=None):
     """``(config, params, loss, make_data)`` of ``arch_id``'s smoke config,
     the parameters drawn from ``seed`` on ``device`` (``None`` = ``cuda``)."""
-    family = "gnn" if arch_id in GNN_ARCHS else get_arch(arch_id).family
-    if family in LATER:
-        raise NotImplementedError(
-            f"training the {family} family ({arch_id}) is not ported yet: "
-            f"{LATER[family]}")
+    spec = get_arch(arch_id)
+    family = spec.family
     dev = resolve_device(device)
-    cfg = get_arch(arch_id).make_smoke_config()
-    mod = tf_mod if family == "lm" else recsys_mod
+    cfg = spec.make_smoke_config()
+    mod = MODELS[family]
     params = mod.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
 
     def loss(p, b):
         return mod.loss_fn(p, b, cfg)
 
+    def graphs():
+        rng = np.random.default_rng(seed)
+        while True:
+            yield random_graph(rng, 256, 1024, cfg.d_in, cfg.n_classes)
+
     def data():
         if family == "lm":
             return lm_batches(seed, cfg.vocab_size, batch, seq_len)
+        if family == "gnn":
+            return graphs()
         return recsys_batches(seed, cfg.n_dense, cfg.n_sparse,
                               cfg.vocab_per_field, batch)
 

@@ -1,2 +1,3 @@
-"""Models of the port: the recsys architectures, the dense LM
-(attention and the transformer's serving path) and their plumbing."""
+"""Models of the port: the recsys architectures, the LMs (attention, the
+transformer's serving and training paths, the MoE feed-forward), the PNA
+GNN and their plumbing."""

@@ -1,5 +1,5 @@
-"""Embedding tables: lookup and the ragged EmbeddingBag for recsys, the
-token lookup for the LM.
+"""Embedding tables: lookup, the hash-trick lookup and the ragged
+EmbeddingBag for recsys, the token lookup for the LM.
 
 Recsys rows are taken as the reference's ``jnp.take`` takes them: an id
 in ``[-V, 0)`` counts from the end of the table, any other out-of-range id
@@ -8,10 +8,11 @@ gives a NaN row. The LM's token rows are taken as the reference's
 clamped into the table. Both functions are plain PyTorch, as the reference
 computes them outside any Pallas kernel; the fixed-arity bag that the
 recsys model runs on the card is kernel B5
-(:func:`repro_torch.kernels.ops.embedding_bag`). ``hashed_lookup`` (the
-reference's hash-trick lookup) is a later slice of the port.
+(:func:`repro_torch.kernels.ops.embedding_bag`). :func:`hashed_lookup`
+is the reference's hash-trick lookup, its uint32 hash computed in int64
+without overflow.
 
-Gradients. Both lookups scatter their rows' gradients into the table
+Gradients. The lookups scatter their rows' gradients into the table
 through :func:`repro_torch.kernels.embedding_bag.row_grad`: a stable sort
 of the rows and a segmented sum in a fixed order, so two backward passes
 on the card are bitwise equal (the backward of ``table[ids]`` and
@@ -63,6 +64,39 @@ def index_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     nothing, as the transpose of jnp's gather drops it (the forward
     clamps it; the backward does not)."""
     return _IndexRows.apply(table, ids)
+
+
+#: Knuth's multiplicative constant; probe ``i`` multiplies by
+#: ``KNUTH + 2 * i + 1`` modulo 2**32
+KNUTH = 2654435761
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` and ``c`` in ``[0, 2**32)``,
+    every intermediate below 2**49: ``c`` split into 16-bit halves, the
+    high half's product masked to 16 bits before its shift."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def hashed_lookup(table: torch.Tensor, raw_ids: torch.Tensor,
+                  num_hashes: int = 2) -> torch.Tensor:
+    """Hash-trick lookup for unbounded vocabularies (QR-style compromise):
+    the mean of ``num_hashes`` universal-hash probes into one physical
+    table ``[V, d]``. Probe ``i`` takes row ``(id mod 2**32) * (KNUTH + 2i
+    + 1) mod 2**32 mod V``, as the reference's uint32 arithmetic does (a
+    negative id wraps to its two's complement); rows go through
+    :func:`take_rows`, whose gradient is deterministic."""
+    V = table.shape[0]
+    x = raw_ids.long() & _U32
+    out = 0
+    for i in range(num_hashes):
+        h = _mul_u32(x, KNUTH + 2 * i + 1) % V
+        out = out + take_rows(table, h.int())
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
+    # scalar divisor, which rounds otherwise than jnp's division by 3
+    return out / out.new_full((), num_hashes)
 
 
 def embedding_bag(

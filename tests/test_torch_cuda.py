@@ -44,7 +44,11 @@ The LM's token lookup (``index_rows``) is held the same way, and the LM
 within 1e-5 normwise at fp32 and 5e-2 at bf16 (the CPU tests' limits
 against the reference), two card passes bitwise equal; the MoE config at
 bf16 with its routing held up to each row's first flip, a near-tie, and
-its gradient to the CPU's fp32 one."""
+its gradient to the CPU's fp32 one. The PNA GNN's ``loss_fn`` (no kernel)
+at the smoke config, node and graph tasks: the loss and every gradient
+leaf within 1e-5 normwise of the CPU's or 10 times the CPU's own fp32
+error against its float64 run, two card passes bitwise equal; and
+``hashed_lookup``'s rows and gradient bitwise the CPU's."""
 
 import numpy as np
 import pytest
@@ -1199,3 +1203,82 @@ def test_lm_loss_and_gradient_on_the_card_match_the_cpu(arch, dtype):
     for x, y in zip(card, cpu):
         err = normwise(x, y)
         assert err <= tol, err
+
+
+PNA_TOL, PNA_F32_FACTOR = 1e-5, 10
+
+
+@pytest.mark.parametrize("task", ["node", "graph"])
+def test_pna_loss_and_gradient_on_the_card_match_the_cpu(task):
+    """``models/gnn.py: loss_fn`` at the smoke config (a power-law graph
+    for the node task, a molecule batch for the graph task) on the card
+    against the CPU from the same parameters: the loss and every leaf's
+    gradient within ``PNA_TOL`` normwise or ``PNA_F32_FACTOR`` times the
+    CPU's own fp32 error against its float64 run, whichever is larger
+    (``tests/test_torch_gnn.py``'s rule against the reference: the std
+    aggregator cancels), two card passes bitwise equal, and no kernel
+    launched."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+    from repro_torch.models import gnn
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
+    cfg = get_arch("pna").make_smoke_config()
+    if task == "graph":
+        cfg = dataclasses.replace(cfg, task="graph", d_in=14, n_classes=2)
+        graph = molecule_batch(np.random.default_rng(2), 8, 10, 20, 14, 2)
+    else:
+        graph = random_graph(np.random.default_rng(0), 64, 256, 8, 3)
+    cpu0 = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def grads(dev, dtype=torch.float32):
+        leaves = [x.to(dev, dtype, copy=True).requires_grad_()
+                  for x in tree_leaves(cpu0)]
+        g = {k: v if k == "n_graphs" else torch.as_tensor(v).to(dev)
+             for k, v in graph.items()}
+        g["nodes"] = g["nodes"].to(dtype)
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        loss, _ = gnn.loss_fn(tree_unflatten(cpu0, leaves), g, c)
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    def normwise(a, b):
+        return float((a.cpu().double() - b.double()).norm()
+                     / b.double().norm())
+
+    before = (topk_mips.launches, gather_scores.launches,
+              embedding_bag.launches, fm_interaction.launches)
+    card = grads(torch.device("cuda"))
+    assert (topk_mips.launches, gather_scores.launches,
+            embedding_bag.launches, fm_interaction.launches) == before
+    for x, y in zip(card, grads(torch.device("cuda"))):
+        assert torch.equal(x, y)
+    cpu, cpu64 = grads("cpu"), grads("cpu", torch.float64)
+    for x, y, z in zip(card, cpu, cpu64):
+        assert normwise(x, y) <= max(PNA_TOL,
+                                     PNA_F32_FACTOR * normwise(y, z))
+
+
+def test_hashed_lookup_on_the_card_is_bitwise_the_cpu():
+    """``models/embedding.py: hashed_lookup`` (1 to 3 probes) over ids
+    spread over the int32 range, edge ids included: the rows and the
+    table's gradient (``row_grad``'s fixed-order sum) bitwise the CPU's."""
+    _need_card()
+    from repro_torch.models.embedding import hashed_lookup
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((99_991, 10))
+                             .astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (4096, 39),
+                                        dtype=np.int64).astype(np.int32))
+    ids[0, :4] = torch.tensor([0, -1, 2 ** 31 - 1, -2 ** 31])
+    cot = torch.from_numpy(rng.standard_normal((4096, 39, 10))
+                           .astype(np.float32))
+    for n in (1, 2, 3):
+        out = []
+        for dev in ("cuda", "cpu"):
+            t = table.to(dev).requires_grad_()
+            rows = hashed_lookup(t, ids.to(dev), n)
+            g, = torch.autograd.grad(rows, t, cot.to(dev))
+            out.append((rows.detach().cpu(), g.cpu()))
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1], out[1][1])

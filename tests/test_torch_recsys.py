@@ -99,7 +99,7 @@ def test_registry_and_configs_equal_the_reference():
             assert cfg.param_count() == ref_cfg.param_count()
             assert cfg.interaction_input == ref_cfg.interaction_input
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("pna")
+        get_arch("no-such-arch")
     with pytest.raises(KeyError, match="no shape"):
         get_arch("deepfm").shape("decode_32k")
 

@@ -525,9 +525,3 @@ def test_launcher_trains_deepfm_on_the_cpu_and_resumes(capsys):
         assert "arch=deepfm config=deepfm-smoke steps=12 loss" in out
         again = launch_train.main(args[:3] + ["24"] + args[4:])
         assert again.step == 24 and again.history[0]["step"] == 20
-
-
-@pytest.mark.parametrize("arch,item", [("pna", "ROADMAP A7.6")])
-def test_launcher_refuses_the_families_not_ported_yet(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launch_train.main(["--arch", arch, "--device", "cpu"])
