@@ -317,12 +317,38 @@ checkout. In order, it
     10) over 65,536 x 39 ids spread over the int32 range: its rows and
     the table's gradient bitwise the CPU's. It prints each cell's step
     median ms (steps 2-N) against the reference's FLOP count at the fp32
-    peak (``gnn_flops``), peak memory and one profiled step (busy share,
+    peak (``gnn_bound``), peak memory and one profiled step (busy share,
     launches, time by kernel), (c)'s host seconds to build the graph and
     the sampler, the sampler's ms a step and each subgraph's real node
     and edge counts, with the card's name and power limit (``gnn ...``
     and ``gnn: {json}``);
-20. prints one ``{"kernels": [...]}`` line and, last, the device line
+20. the tooling (``launch/cells.py``, ``launch/dryrun.py``,
+    ``roofline/analysis.py``): (a) the dry run in process over all 40
+    cells on ``single`` and ``multi`` from meta stand-ins (80 records,
+    all ``ok``, no card memory; one line a family: cells, the largest
+    ``argument_bytes`` a device, the bottlenecks); (b) ``fm``
+    ``retrieval_cand`` on the ``tiny`` mesh (8 logical shards of the
+    card): parameters drawn on the card from SEED and shaped as the
+    stand-ins, the first ``recsys_batches`` row, 1,015,808 bf16
+    candidates, one ``cell.fn`` call (B5 launched, mean mode, its
+    thread-per-output path) whose top-100 equals a float64 top-100 of the
+    same ``u`` and candidates and whose ``u`` equals the CPU's query
+    tower; (c) one ``pna`` ``molecule`` AdamW step through ``cell.fn``
+    (3,840 nodes, 8,192 edges from ``molecule_batch``): the loss, both
+    moments and every parameter within ``GNN_TOL`` normwise of the same
+    step on the CPU or ``GNN_F32_FACTOR`` times the CPU's own fp32 error
+    against float64, but for the fewest farthest parameter entries in
+    AdamW's eps regime (a gradient below ``TOOLING_EPS_REGIME`` x eps on
+    a side, where the move follows the gradient's value, not its sign;
+    at most 1% of a leaf, each named with both sides' gradients);
+    each call's median ms of ``TOOLING_REPS`` beside ``from_cell``'s
+    bound on the mesh's 8 chips and on one card; (d) the rates every
+    bound reads (``bound``, ``train_bounds``, ``lm_bounds``,
+    ``lm_train_bounds``, ``gnn_bound``) are ``roofline/analysis.py``'s,
+    equal to ``BOUND_RATES``, and ``gnn_bound``'s FLOPs
+    (``launch/cells.py: gnn_model_flops``) equal ``GNN_FORMER_FLOPS``
+    (``tooling ...`` and ``tooling: {json}``);
+21. prints one ``{"kernels": [...]}`` line and, last, the device line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the device line.
@@ -527,11 +553,20 @@ GNN_PROFILE_GROUPS = {"GEMMs": "gemm", "sorts": "RadixSort",
                       "fp32 adds": "CUDAFunctor_add<float>",
                       "indexing": "index_elementwise"}
 HASH_ROWS, HASH_DIM, HASH_BATCH, HASH_FIELDS = 1_000_000, 10, 65_536, 39
-# H100 SXM published peaks (HBM bandwidth; fp32 outside the tensor cores;
-# dense bf16 on the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# The rates every bound reads come from the port's roofline
+# (roofline/analysis.py: HBM_BW, PEAK_FLOPS_FP32, PEAK_FLOPS); (d) of the
+# tooling phase holds them to the H100 SXM literals the bounds were taken
+# at before, and launch/cells.py's gnn_model_flops to the values of the
+# GNN bound's former formula at the GNN phase's three (N, E)
+BOUND_RATES = (3.35e12, 67e12, 989e12)
+GNN_FORMER_FLOPS = {"full_graph_sm": (2708, 10556, 8983333800.0),
+                    "molecule": (3840, 8192, 8456832000.0),
+                    "minibatch_lg": (169984, 168960, 367041945600.0)}
+# (b) and (c) of the tooling phase: fm retrieval_cand and pna molecule on
+# the ``tiny`` mesh (8 logical shards of the card), each call timed this
+# often; (c)'s AdamW eps regime: a gradient entry below this many eps
+TOOLING_REPS = 10
+TOOLING_EPS_REGIME = 10
 
 
 def catalogues():
@@ -561,18 +596,31 @@ def gpu_name_and_power() -> str:
 
 
 def bound(nbytes: float, flops: float):
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    the roofline's bound of one card at the fp32 peak."""
+    from repro_torch.roofline.analysis import kernel_bound
+    return kernel_bound(nbytes, flops)
 
 
-def timed_ms(fn, reps: int) -> float:
+def timed_ms(fn, reps: int, median: bool = False) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events,
-    after one warm-up run)."""
+    after one warm-up run); with ``median``, the median of the runs, each
+    between two events of its own."""
+    import statistics
     import torch
     fn()
     torch.cuda.synchronize()
+    if median:
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1264,11 +1312,12 @@ def train_bounds(cfg, B: int, distinct: int) -> dict:
     step_bytes = 8 * p_bytes + io_bytes
     dims = (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp_dims + (1,)
     ops = 6 * B * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
-    bytes_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / FP32_FLOPS_PER_S
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS_FP32
+    bytes_ms = 1e3 * step_bytes / HBM_BW
+    ops_ms = 1e3 * ops / PEAK_FLOPS_FP32
     return {"step_bytes": step_bytes, "param_bytes": p_bytes,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "fused_bytes_ms":
-            1e3 * (6 * p_bytes + io_bytes) / HBM_BYTES_PER_S,
+            1e3 * (6 * p_bytes + io_bytes) / HBM_BW,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -2793,18 +2842,17 @@ def lm_bounds(cfg, B: int, P: int, T: int, prefill_kept=None,
         return (2 * n_tokens * L * attn + 2 * rows * row,
                 2 * n_tokens * L * router)
 
+    from repro_torch.roofline.analysis import (HBM_BW as hbm,
+                                               PEAK_FLOPS as bf16,
+                                               PEAK_FLOPS_FP32 as fp32)
     bf16_ops, fp32_ops = gemm_ops(B, step_kept)
-    step_ops_ms = 1e3 * (bf16_ops / BF16_FLOPS_PER_S
-                         + (fp32_ops + 2 * B * D * V) / FP32_FLOPS_PER_S)
+    step_ops_ms = 1e3 * (bf16_ops / bf16 + (fp32_ops + 2 * B * D * V) / fp32)
     bf16_ops, fp32_ops = gemm_ops(B * P, prefill_kept)
     causal = 4 * L * B * cfg.n_heads * cfg.head_dim * P * (P + 1) // 2
-    prefill_ops_ms = 1e3 * ((bf16_ops + causal) / BF16_FLOPS_PER_S
-                            + fp32_ops / FP32_FLOPS_PER_S)
+    prefill_ops_ms = 1e3 * ((bf16_ops + causal) / bf16 + fp32_ops / fp32)
     return {"step_bytes": step_bytes,
-            "step_bound_ms": max(1e3 * step_bytes / HBM_BYTES_PER_S,
-                                 step_ops_ms),
-            "prefill_bound_ms": max(prefill_ops_ms,
-                                    1e3 * 2 * proj / HBM_BYTES_PER_S)}
+            "step_bound_ms": max(1e3 * step_bytes / hbm, step_ops_ms),
+            "prefill_bound_ms": max(prefill_ops_ms, 1e3 * 2 * proj / hbm)}
 
 
 def lm_path(dev, arch: str, n_params: int) -> None:
@@ -3292,12 +3340,12 @@ def lm_train_bounds(cfg, B: int, S: int, param_bytes: int) -> dict:
     matmul = L * layer + D * cfg.vocab_size
     tokens = B * S
     causal = 3 * 2 * B * S * S * cfg.q_dim * L
-    ops_ms = 1e3 * (6 * matmul * tokens + causal) / BF16_FLOPS_PER_S
-    bytes_ms = 1e3 * 8 * param_bytes / HBM_BYTES_PER_S
+    from repro_torch.roofline.analysis import HBM_BW as hbm, PEAK_FLOPS as bf16
+    ops_ms = 1e3 * (6 * matmul * tokens + causal) / bf16
+    bytes_ms = 1e3 * 8 * param_bytes / hbm
     return {"matmul_params": matmul, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": ops_ms + bytes_ms,
-            "remat_ms": 1e3 * (2 * matmul * tokens + causal / 3)
-            / BF16_FLOPS_PER_S}
+            "remat_ms": 1e3 * (2 * matmul * tokens + causal / 3) / bf16}
 
 
 def lm_train_path(dev) -> None:
@@ -3518,16 +3566,14 @@ def lm_train_path(dev) -> None:
     print("lm train: " + json.dumps(rec), flush=True)
 
 
-def gnn_flops(cfg, N: int, E: int) -> float:
-    """The reference's FLOP count of one PNA training step over ``N``
-    nodes and ``E`` edges (``src/repro/launch/cells.py:255``): the forward
-    and the two products of the backward of each layer's message GEMM
-    (``[E, 2d] x [2d, d]``) and update GEMM (``[N, 12d] x [12d, d]``), and
-    of the encoder's (``[N, d_feat] x [d_feat, d]``)."""
-    d = cfg.d_hidden
-    return 3.0 * cfg.n_layers * (2.0 * E * (2 * d) * d
-                                 + 2.0 * N * (12 * d) * d) \
-        + 6.0 * N * cfg.d_in * d
+def gnn_bound(cfg, N: int, E: int):
+    """``(FLOPs, ms)`` of one PNA training step over ``N`` nodes and ``E``
+    edges: the dry-run cells' FLOP count (``launch/cells.py:
+    gnn_model_flops``, the reference's formula) at the fp32 peak."""
+    from repro_torch.launch.cells import gnn_model_flops
+    from repro_torch.roofline.analysis import PEAK_FLOPS_FP32
+    flops = gnn_model_flops(cfg, N, E)
+    return flops, 1e3 * flops / PEAK_FLOPS_FP32
 
 
 def gnn_check(label, cfg, params, graph, dev):
@@ -3646,8 +3692,7 @@ def gnn_cell_record(label, cfg, tr, peak, wall, N, E, batch):
     import numpy as np
     step_ms = [1e3 * h["step_time"] for h in tr.history]
     med = float(np.median(step_ms[1:]))
-    flops = gnn_flops(cfg, N, E)
-    bound_ms = 1e3 * flops / FP32_FLOPS_PER_S
+    flops, bound_ms = gnn_bound(cfg, N, E)
     losses = [h["loss"] for h in tr.history]
     prof = profile_call(f"one PNA {label} training step",
                         lambda: tr.train_step(tr.params, tr.opt_state,
@@ -3884,6 +3929,296 @@ def gnn_path(dev) -> None:
     print(f"gnn at {gpu}: B1-B6 launched 0 times in every part; phase "
           f"{rec['phase_s']:.1f} s", flush=True)
     print("gnn: " + json.dumps(rec), flush=True)
+
+
+def same_shapes(tree, stand_ins) -> bool:
+    """Whether ``tree``'s tensors have the shapes and dtypes of the cell's
+    meta stand-ins, leaf for leaf."""
+    from repro_torch.train.tree import tree_leaves
+    got, want = tree_leaves(tree), tree_leaves(stand_ins)
+    return len(got) == len(want) and all(
+        (g.shape, g.dtype) == (w.shape, w.dtype) for g, w in zip(got, want))
+
+
+def tooling_dryrun() -> None:
+    """(a) of step 20: every cell on ``single`` and ``multi`` from meta
+    stand-ins, in process; one line a family."""
+    import collections
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    records = []
+    with tempfile.TemporaryDirectory() as out, \
+            contextlib.redirect_stdout(io.StringIO()):
+        for arch, shape in all_cells():
+            for mesh_name in ("single", "multi"):
+                records.append(dryrun.run_cell(arch, shape, mesh_name, out))
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+           for r in records if r["status"] != "ok"]
+    check(len(records) == 80 and not bad,
+          f"tooling: {len(records)} dry-run records, not ok: {bad}")
+    check(torch.cuda.memory_allocated() == before,
+          "tooling: the dry run allocated memory on the card")
+    families = collections.defaultdict(list)
+    for r in records:
+        families[get_arch(r["arch"]).family].append(r)
+    for fam, recs in families.items():
+        top = max(recs, key=lambda r: r["memory"]["argument_bytes"])
+        necks = collections.Counter(r["roofline"]["bottleneck"] for r in recs)
+        print(f"tooling dry run {fam}: "
+              f"{len({(r['arch'], r['shape']) for r in recs})} cells on "
+              f"single and multi, largest argument_bytes per device "
+              f"{top['memory']['argument_bytes']:,} ({top['arch']} "
+              f"{top['shape']} {top['mesh']}), bottlenecks {dict(necks)}",
+              flush=True)
+    print(f"tooling dry run: {len(records)} of 80 records ok in "
+          f"{time.perf_counter() - t0:.1f} s, no card memory", flush=True)
+
+
+def tooling_retrieval(dev) -> dict:
+    """(b) of step 20: ``fm`` ``retrieval_cand`` on the ``tiny`` mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import launch_plan
+    from repro_torch.launch.cells import RETRIEVAL_K, build_cell
+    from repro_torch.launch.mesh import MESHES
+    from repro_torch.models import recsys
+    from repro_torch.roofline.analysis import from_cell
+    cell = build_cell("fm", "retrieval_cand", MESHES["tiny"](dev))
+    cfg = get_arch("fm").make_config()
+    params = recsys.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+    B = cell.args[1]["sparse"].shape[0]
+    raw = next(recsys_batches(SEED, cfg.n_dense, cfg.n_sparse,
+                              cfg.vocab_per_field, B))
+    batch = {key: torch.from_numpy(raw[key]).to(dev) for key in cell.args[1]}
+    M = cell.args[2].shape[0]
+    rng = np.random.default_rng(SEED)
+    cand = torch.from_numpy(
+        (rng.standard_normal((M, cfg.embed_dim))
+         * (1.0 / np.sqrt(1.0 + rng.random(M)))[:, None]).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    check(same_shapes((params, batch, cand), cell.args),
+          "tooling retrieval_cand: the arguments differ from the stand-ins")
+    check(launch_plan(B, cfg.n_sparse, cfg.embed_dim).path == "cols",
+          "tooling retrieval_cand: B5 would not take its thread-per-output "
+          "path")
+    torch.cuda.synchronize()
+    zero_counters()
+    res = cell.fn(params, batch, cand)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(launches["embedding_bag"] >= 1,
+          f"tooling retrieval_cand: B5 was not launched {launches}")
+    u = recsys.query_tower(params, batch, cfg)
+    u_cpu = recsys.query_tower(tree_to(params, "cpu"), tree_to(batch, "cpu"),
+                               cfg)
+    u_err = float((u.cpu() - u_cpu).abs().max())
+    check(torch.allclose(u.cpu(), u_cpu, rtol=RTOL, atol=ATOL),
+          f"tooling retrieval_cand: u differs from the CPU's ({u_err:.3g})")
+    want_v, want_i = torch.topk(u.double().cpu() @ cand.double().cpu().T,
+                                RETRIEVAL_K)
+    vals, ids = res.values.cpu(), res.indices.cpu().long()
+    err = float((vals.double() - want_v).abs().max())
+    check(vals.shape == (B, RETRIEVAL_K) and bool(torch.isfinite(vals).all())
+          and torch.allclose(vals.double(), want_v, rtol=RTOL, atol=ATOL)
+          and ids_agree(want_v.float(), want_i, vals, ids)
+          and bool((res.n_scored.cpu() == M).all()),
+          f"tooling retrieval_cand: the top-{RETRIEVAL_K} differs from the "
+          f"float64 witness (max abs err {err:.3g})")
+    ms = timed_ms(lambda: cell.fn(params, batch, cand), TOOLING_REPS,
+                  median=True)
+    rec = {"ms": ms, "bound_ms_tiny": 1e3 * from_cell(cell, 8).t_bound,
+           "bound_ms_one_card": 1e3 * from_cell(cell, 1).t_bound,
+           "bottleneck": from_cell(cell, 1).bottleneck,
+           "b5_launches": launches["embedding_bag"], "max_abs_err": err,
+           "u_max_abs_err": u_err}
+    print(f"tooling fm retrieval_cand on tiny (8 shards of the card): exact "
+          f"top-{RETRIEVAL_K} of {M:,} bf16 candidates, ids and values equal "
+          f"to the float64 witness (max abs err {err:.3g}), u within "
+          f"{u_err:.3g} of the CPU's, B5 launched {launches['embedding_bag']}"
+          f"; call {ms:.4f} ms (median of {TOOLING_REPS}); from_cell bound "
+          f"{rec['bound_ms_tiny']:.4g} ms on the mesh's 8 chips, "
+          f"{rec['bound_ms_one_card']:.4g} ms on one card "
+          f"({rec['bottleneck']})", flush=True)
+    return rec
+
+
+def tooling_molecule(dev) -> dict:
+    """(c) of step 20: one ``pna`` ``molecule`` training step on the
+    ``tiny`` mesh against the same step on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import molecule_batch
+    from repro_torch.launch.cells import OPT_CFG, build_cell
+    from repro_torch.launch.mesh import MESHES
+    from repro_torch.models import gnn
+    from repro_torch.roofline.analysis import from_cell
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.tree import (path_key, tree_flatten_with_path,
+                                        tree_map)
+    spec = get_arch("pna")
+    d = spec.shape("molecule").dims
+    cfg = spec.make_config(d_feat=d["d_feat"], n_classes=d["n_classes"],
+                           task="graph")
+    cell = build_cell("pna", "molecule", MESHES["tiny"](dev))
+    cpu_cell = build_cell("pna", "molecule", MESHES["tiny"]("cpu"))
+    params = gnn.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    raw = molecule_batch(np.random.default_rng(SEED), d["batch"],
+                         d["n_nodes"], d["n_edges"], d["d_feat"],
+                         d["n_classes"])
+    graph = {key: torch.from_numpy(raw[key]) for key in cell.args[2]}
+    state = (params, init_state(OPT_CFG, params), graph)
+    check(same_shapes(state, cell.args),
+          "tooling molecule: the arguments differ from the stand-ins")
+
+    def on(where, dtype=None):
+        def move(x):
+            if dtype is not None and x.is_floating_point():
+                return x.to(where, dtype, copy=True)
+            return x.to(where, copy=True)
+        return tree_map(move, state)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    card = cell.fn(*on(dev))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(not any(launches.values()),
+          f"tooling molecule: launched a kernel {launches}")
+    cpu = cpu_cell.fn(*on("cpu"))
+    c64 = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    fp64 = make_train_step(lambda p, b: gnn.loss_fn(p, b, c64), OPT_CFG)(
+        *on(dev, torch.float64))
+    sides = [{path_key(p): x for p, x in tree_flatten_with_path(
+        {"params": out[0], "opt": out[1], "loss": out[2]["loss"]})}
+        for out in (card, cpu, fp64)]
+    errs, own, exempt = {}, {}, {}
+    check(torch.equal(sides[0]["opt|.step"].cpu(), sides[1]["opt|.step"]),
+          "tooling molecule: the step count differs from the CPU's")
+
+    def limit(want, wide):
+        return max(GNN_TOL, GNN_F32_FACTOR * normwise(want, wide))
+
+    for key, want in sides[1].items():
+        if key == "opt|.step":
+            continue
+        got, wide = sides[0][key].cpu(), sides[2][key].cpu()
+        if key.startswith("params|"):
+            # AdamW's first step moves an entry by lr*g/(|g|+eps): in the
+            # eps regime (|g| < TOOLING_EPS_REGIME * eps on a side) the move
+            # follows g's value, not its sign, so a gradient entry a few
+            # percent off (inside the moments' normwise rule) moves the
+            # parameter by a percent of lr. The farthest such entries are
+            # exempt, fewest first, until the rest of the leaf holds the
+            # rule; each is named with both sides' gradients
+            leaf = key[len("params|"):]
+            g_card, g_cpu, g_64 = (
+                (side["opt|.mu|" + leaf].cpu().double()
+                 / (1 - OPT_CFG.b1)).flatten() for side in sides)
+            got, want, wide = got.flatten(), want.flatten(), wide.flatten()
+            keep = torch.ones_like(want, dtype=torch.bool)
+            exempt[key] = []
+            for i in (got.double() - want.double()).abs().argsort(
+                    descending=True).tolist():
+                if normwise(got[keep], want[keep]) <= limit(want[keep],
+                                                            wide[keep]):
+                    break
+                regime = TOOLING_EPS_REGIME * OPT_CFG.eps
+                check(len(exempt[key]) < max(1, want.numel() // 100)
+                      and min(abs(g_card[i]), abs(g_cpu[i])) < regime,
+                      f"tooling molecule: {key} on the card vs the CPU "
+                      f"{normwise(got[keep], want[keep]):.3g} after "
+                      f"exempting {exempt[key]}; its next farthest entry "
+                      f"{i} (gradient card {float(g_card[i]):.4g}, CPU "
+                      f"{float(g_cpu[i]):.4g}) is not in the eps regime or "
+                      f"exceeds 1% of the leaf")
+                keep[i] = False
+                exempt[key].append({
+                    "entry": i, "card": float(got[i]), "cpu": float(want[i]),
+                    "fp64": float(wide[i]), "card_grad": float(g_card[i]),
+                    "cpu_grad": float(g_cpu[i]), "fp64_grad": float(g_64[i])})
+            got, want, wide = got[keep], want[keep], wide[keep]
+        errs[key] = normwise(got, want)
+        own[key] = normwise(want, wide)
+        check(errs[key] <= limit(want, wide),
+              f"tooling molecule: {key} on the card vs the CPU "
+              f"{errs[key]:.3g} (the CPU's own fp32 error {own[key]:.3g})")
+    exempt = {key: v for key, v in exempt.items() if v}
+    args = on(dev)
+    ms = timed_ms(lambda: cell.fn(*args), TOOLING_REPS, median=True)
+    rec = {"ms": ms, "bound_ms_tiny": 1e3 * from_cell(cell, 8).t_bound,
+           "bound_ms_one_card": 1e3 * from_cell(cell, 1).t_bound,
+           "bottleneck": from_cell(cell, 1).bottleneck,
+           "loss": float(card[2]["loss"]),
+           "worst_ratio": max(errs[key] / max(GNN_TOL, GNN_F32_FACTOR
+                                              * own[key]) for key in errs),
+           "exempt": exempt, "card_vs_cpu": errs, "cpu_fp32_vs_fp64": own}
+    print(f"tooling pna molecule on tiny: one AdamW step over "
+          f"{raw['nodes'].shape[0]:,} nodes and {raw['edge_src'].shape[0]:,} "
+          f"edges, loss {rec['loss']:.6f}; the loss, both moments and every "
+          f"parameter within the rule of the CPU's step (worst "
+          f"{rec['worst_ratio']:.3g} of its limit), exempt (AdamW's eps "
+          f"regime) {sum(map(len, exempt.values()))} entries "
+          f"{json.dumps(exempt)}; card vs CPU by leaf "
+          f"{json.dumps(errs)}, the CPU's own fp32 error "
+          f"{json.dumps(own)}; step {ms:.4f} ms (median of "
+          f"{TOOLING_REPS}); from_cell bound {rec['bound_ms_tiny']:.4g} ms on "
+          f"the mesh's 8 chips, {rec['bound_ms_one_card']:.4g} ms on one "
+          f"card ({rec['bottleneck']})", flush=True)
+    return rec
+
+
+def tooling_bounds() -> dict:
+    """(d) of step 20: every bound of the run reads the roofline's rates,
+    which must be the literals the bounds were taken at before
+    (``BOUND_RATES``), and the GNN bound's FLOPs, ``launch/cells.py:
+    gnn_model_flops``, must equal its former formula's values at the GNN
+    phase's three (N, E) (``GNN_FORMER_FLOPS``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import gnn_model_flops
+    from repro_torch.roofline import analysis
+    rates = (analysis.HBM_BW, analysis.PEAK_FLOPS_FP32, analysis.PEAK_FLOPS)
+    check(rates == BOUND_RATES,
+          f"tooling: the roofline's rates {rates} are not {BOUND_RATES}")
+    spec = get_arch(GNN_ARCH)
+    flops = {}
+    for shape, (N, E, former) in GNN_FORMER_FLOPS.items():
+        d = spec.shape(shape).dims
+        cfg = spec.make_config(d_feat=d["d_feat"], n_classes=d["n_classes"],
+                               task=d.get("task", "node"))
+        flops[shape] = (gnn_model_flops(cfg, N, E), former)
+    moved = {key: v for key, v in flops.items() if v[0] != v[1]}
+    check(not moved, f"tooling: gnn_model_flops moved (now, before): {moved}")
+    print(f"tooling bounds: the roofline's rates {rates} equal the former "
+          f"literals; gnn_model_flops (now, before) {flops}", flush=True)
+    return {"rates": rates, "gnn_flops": flops}
+
+
+def tooling_path(dev) -> None:
+    """Step 20 of the module docstring."""
+    t_phase = time.perf_counter()
+    tooling_dryrun()
+    retrieval = tooling_retrieval(dev)
+    molecule = tooling_molecule(dev)
+    bounds = tooling_bounds()
+    print("tooling: " + json.dumps({
+        "device": gpu_name_and_power(), "retrieval_cand": retrieval,
+        "molecule": {key: v for key, v in molecule.items()
+                     if key not in ("card_vs_cpu", "cpu_fp32_vs_fp64")},
+        "bounds": bounds,
+        "s": time.perf_counter() - t_phase}), flush=True)
+    print(f"tooling phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def sharded_path(servers, U_all, results, cpu_ctx, dev) -> dict:
@@ -4334,6 +4669,8 @@ def run(dev, kind: str) -> None:
     lm_train_path(dev)
     torch.cuda.empty_cache()
     gnn_path(dev)
+    torch.cuda.empty_cache()
+    tooling_path(dev)
 
     def max_err(mode):
         return max(case[mode]["max_abs_err"] for case in compare.values())

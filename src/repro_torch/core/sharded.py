@@ -133,13 +133,16 @@ def _sum_counts(groups, per_group: List[torch.Tensor]) -> torch.Tensor:
 
 def _local_topk(groups, parts, U, k):
     """Per shard ``T_l @ U`` and its stable top-``min(k, m_local)``:
-    ``(vals, global ids)`` per group, ``[S_g, B, kk]``."""
+    ``(vals, global ids)`` per group, ``[S_g, B, kk]``. The product runs
+    in the promoted dtype of ``U`` and ``T`` (fp32 for a bf16 catalogue
+    and fp32 queries, as the reference's ``preferred_element_type``)."""
     m_local = parts[0].shape[1]
     kk = min(k, m_local)
+    dt = torch.promote_types(U.dtype, parts[0].dtype)
     vals, gids = [], []
     for g, T_g in zip(groups, parts):
-        U_g = U.to(g.device)
-        scores = torch.matmul(U_g, T_g.transpose(1, 2))    # [S_g, B, m]
+        U_g = U.to(g.device, dt)
+        scores = torch.matmul(U_g, T_g.to(dt).transpose(1, 2))  # [S_g, B, m]
         v, idx = stable_topk(scores, kk)
         shard = torch.tensor(g.shards, device=g.device)[:, None, None]
         vals.append(v)

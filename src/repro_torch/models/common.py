@@ -90,21 +90,24 @@ ACTIVATIONS = {
 }
 
 
-def dense_init(generator: torch.Generator, shape) -> torch.Tensor:
+def dense_init(generator: torch.Generator, shape,
+               device=None) -> torch.Tensor:
     """LeCun-normal (fan-in, the second-to-last axis) init in fp32, drawn
-    from ``generator`` on its device (scaled in place: a full-width
-    expert stack is 8.6 GB)."""
+    from ``generator`` on ``device`` (default: the generator's; ``meta``
+    gives a stand-in that allocates nothing), scaled in place: a
+    full-width expert stack is 8.6 GB."""
     return torch.randn(tuple(shape), generator=generator,
-                       device=generator.device,
+                       device=device or generator.device,
                        dtype=torch.float32).div_(math.sqrt(shape[-2]))
 
 
-def embed_init(generator: torch.Generator, shape,
-               scale: float = 1.0) -> torch.Tensor:
+def embed_init(generator: torch.Generator, shape, scale: float = 1.0,
+               device=None) -> torch.Tensor:
     """Standard-normal embedding table in fp32 times ``scale``, drawn from
-    ``generator`` on its device."""
+    ``generator`` on ``device`` (default: the generator's)."""
     return torch.randn(tuple(shape), generator=generator,
-                       device=generator.device, dtype=torch.float32) * scale
+                       device=device or generator.device,
+                       dtype=torch.float32) * scale
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -140,12 +143,14 @@ def cast_tree(params: PyTree, dtype: torch.dtype) -> PyTree:
     return params
 
 
-def mlp_params(generator: torch.Generator, dims: Sequence[int]):
-    """Plain MLP parameter stack on the generator's device:
+def mlp_params(generator: torch.Generator, dims: Sequence[int],
+               device=None):
+    """Plain MLP parameter stack on ``device`` (default: the generator's):
     ``[{"w": [in, out], "b": [out]}, ...]``."""
-    return [{"w": dense_init(generator, (dims[i], dims[i + 1])),
+    dev = device or generator.device
+    return [{"w": dense_init(generator, (dims[i], dims[i + 1]), dev),
              "b": torch.zeros((dims[i + 1],), dtype=torch.float32,
-                              device=generator.device)}
+                              device=dev)}
             for i in range(len(dims) - 1)]
 
 

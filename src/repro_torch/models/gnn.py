@@ -91,15 +91,15 @@ def init_params(config: PNAConfig, generator: torch.Generator,
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     return {
-        "enc_w": dense_init(generator, (config.d_in, d)),
+        "enc_w": dense_init(generator, (config.d_in, d), dev),
         "enc_b": zeros(d),
         "layers": {
-            "msg_w": dense_init(generator, (L, 2 * d, d)),
+            "msg_w": dense_init(generator, (L, 2 * d, d), dev),
             "msg_b": zeros(L, d),
-            "upd_w": dense_init(generator, (L, n_cat, d)),
+            "upd_w": dense_init(generator, (L, n_cat, d), dev),
             "upd_b": zeros(L, d),
         },
-        "dec_w": dense_init(generator, (d, config.n_classes)),
+        "dec_w": dense_init(generator, (d, config.n_classes), dev),
         "dec_b": zeros(config.n_classes),
     }
 

@@ -121,19 +121,19 @@ def init_params(config: RecsysConfig, generator: torch.Generator,
         params["bias"] = zeros()
     if config.arch == "deepfm":
         dims = (config.n_sparse * config.embed_dim,) + config.mlp_dims + (1,)
-        params["deep"] = mlp_params(generator, dims)
+        params["deep"] = mlp_params(generator, dims, dev)
     if config.arch == "dcn_v2":
         d0 = config.interaction_input
         params["cross_w"] = dense_init(generator,
-                                       (config.n_cross_layers, d0, d0))
+                                       (config.n_cross_layers, d0, d0), dev)
         params["cross_b"] = zeros(config.n_cross_layers, d0)
         dims = (d0,) + config.mlp_dims + (1,)
-        params["deep"] = mlp_params(generator, dims)
+        params["deep"] = mlp_params(generator, dims, dev)
     if config.arch == "dlrm":
         params["bot"] = mlp_params(generator,
-                                   (config.n_dense,) + config.bot_mlp)
+                                   (config.n_dense,) + config.bot_mlp, dev)
         params["top"] = mlp_params(
-            generator, (config.interaction_input,) + config.top_mlp)
+            generator, (config.interaction_input,) + config.top_mlp, dev)
     return params
 
 

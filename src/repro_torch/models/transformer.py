@@ -107,9 +107,6 @@ class TransformerConfig:
     remat: bool = True
     logit_chunk: int = 512
     kv_block: int = 512
-    # the reference's roofline-calibration switch (unrolled XLA scans);
-    # eager PyTorch has no scan to unroll
-    unroll: bool = False
 
     @property
     def q_dim(self) -> int:
@@ -165,26 +162,26 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
     layers = {
         "ln1": zeros(L, D),
         "ln2": zeros(L, D),
-        "wq": dense_init(generator, (L, D, config.q_dim)),
-        "wk": dense_init(generator, (L, D, config.kv_dim)),
-        "wv": dense_init(generator, (L, D, config.kv_dim)),
-        "wo": dense_init(generator, (L, config.q_dim, D)),
+        "wq": dense_init(generator, (L, D, config.q_dim), dev),
+        "wk": dense_init(generator, (L, D, config.kv_dim), dev),
+        "wv": dense_init(generator, (L, D, config.kv_dim), dev),
+        "wo": dense_init(generator, (L, config.q_dim, D), dev),
     }
     if config.moe:
         E, F = config.n_experts, config.moe_d_ff
-        layers["router"] = dense_init(generator, (L, D, E))
-        layers["moe_gate"] = dense_init(generator, (L, E, D, F))
-        layers["moe_up"] = dense_init(generator, (L, E, D, F))
-        layers["moe_down"] = dense_init(generator, (L, E, F, D))
+        layers["router"] = dense_init(generator, (L, D, E), dev)
+        layers["moe_gate"] = dense_init(generator, (L, E, D, F), dev)
+        layers["moe_up"] = dense_init(generator, (L, E, D, F), dev)
+        layers["moe_down"] = dense_init(generator, (L, E, F, D), dev)
     else:
-        layers["w_gate"] = dense_init(generator, (L, D, config.d_ff))
-        layers["w_up"] = dense_init(generator, (L, D, config.d_ff))
-        layers["w_down"] = dense_init(generator, (L, config.d_ff, D))
+        layers["w_gate"] = dense_init(generator, (L, D, config.d_ff), dev)
+        layers["w_up"] = dense_init(generator, (L, D, config.d_ff), dev)
+        layers["w_down"] = dense_init(generator, (L, config.d_ff, D), dev)
     return {
-        "embed": embed_init(generator, (config.vocab_size, D)),
+        "embed": embed_init(generator, (config.vocab_size, D), device=dev),
         "layers": layers,
         "final_norm": zeros(D),
-        "unembed": dense_init(generator, (D, config.vocab_size)),
+        "unembed": dense_init(generator, (D, config.vocab_size), dev),
     }
 
 

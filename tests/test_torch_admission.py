@@ -164,8 +164,12 @@ def test_warmup_primes_the_ladders_fallback():
     ct = srv.cost_table
     assert ct.engine_cost("bta") is not None
     assert ct.predict("norm@budget", 8, "", granular_only=True) is not None
+    # the ladder's reads pinned, so that no wall-clock cost that warmup
+    # measured on a loaded host decides the rung: bta far over the 50 ms
+    # deadline, norm (the first fallback) far under it
     for _ in range(64):
         ct.observe("bta", 8, "", 10.0)
+        ct.observe("norm", 8, "", 1e-9)
     assert not srv._cost_ewma
     res = srv.query(U, 5, "bta")
     assert sum(srv.stats["bta"].degradations.values()) == 1

@@ -138,9 +138,37 @@ def test_apply_updates_matches_reference(kind):
         recsys_params_from_reference(grads, "cpu"),
         opt_state_from_reference(state, "cpu"))
     assert isinstance(got_s, OptState) and int(got_s.step) == 6
-    _assert_trees(got_p, want_p, 1e-6, 1e-9)
-    _assert_trees(got_s.mu, want_s.mu, 1e-6, 1e-9)
-    _assert_trees(got_s.nu, want_s.nu, 1e-6, 1e-9)
+    # Both packages sum the squares of the global norm in fp32, in orders
+    # of their own (XLA:CPU's depends on the host's vector width), so the
+    # two norms may differ by an fp32 rounding, and so may every clipped
+    # gradient and every leaf it reaches: each leaf is held within 4 fp32
+    # roundings of its largest operand, and each norm to a float64
+    # witness within the worst case of an fp32 sum of n squares.
+    g_leaves = jax.tree_util.tree_leaves(grads)
+    norm64 = np.sqrt(sum(np.sum(np.square(g.astype(np.float64)))
+                         for g in g_leaves))
+    n_squares = sum(g.size for g in g_leaves)
+    for m in (got_m, want_m):
+        np.testing.assert_allclose(float(m["grad_norm"]), norm64,
+                                   rtol=n_squares * 2.0**-24)
+    scale = min(1.0, cfg.grad_clip / norm64)
+    clipped = [np.abs(g.astype(np.float64)) * scale for g in g_leaves]
+    operands = {"params": (params, clipped), "mu": (state[1], clipped),
+                "nu": (state[2], [c * c for c in clipped])}
+    for name, got, want in (("params", got_p, want_p),
+                            ("mu", got_s.mu, want_s.mu),
+                            ("nu", got_s.nu, want_s.nu)):
+        old, grad_op = operands[name]
+        got_l = [host(x) for x in tree_leaves(got)]
+        want_l = [np.asarray(x) for x in jax.tree_util.tree_leaves(want)]
+        old_l = jax.tree_util.tree_leaves(old)
+        assert len(got_l) == len(want_l) == len(old_l) == len(grad_op)
+        for g, w, o, c in zip(got_l, want_l, old_l, grad_op):
+            assert g.shape == w.shape
+            biggest = max(np.max(np.abs(w)), np.max(np.abs(o)), np.max(c))
+            np.testing.assert_allclose(g, w, rtol=1e-6,
+                                       atol=4 * 2.0**-24 * biggest,
+                                       err_msg=name)
     for key in ("lr", "grad_norm"):
         np.testing.assert_allclose(float(got_m[key]), float(want_m[key]),
                                    rtol=1e-6)

@@ -52,6 +52,7 @@ from repro_torch.configs import REGISTRY, get_arch
 from repro_torch.convert import transformer_params_from_reference
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.kernels.topk_mips import topk_mips
+from repro_torch.launch.dryrun import REPLACED
 from repro_torch.models import attention, transformer
 from repro_torch.models.common import cast_tree, count_params, rms_norm
 
@@ -270,9 +271,16 @@ def test_expand_kv_is_jnp_repeat():
 # ---------------------------------------------------------------------------
 
 
+# the reference's config fields that the port replaced (launch/dryrun.py:
+# REPLACED), each with its reason there
+REPLACED_FIELDS = {
+    key.rsplit(".", 1)[1] for key in REPLACED
+    if key.startswith("repro.models.transformer:TransformerConfig.")}
+
+
 def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name != "compute_dtype"}
+            if f.name != "compute_dtype" and f.name not in REPLACED_FIELDS}
 
 
 @pytest.mark.parametrize("arch_id", ALL_LM)
