@@ -134,9 +134,9 @@ checkout. In order, it
     counters set to 0 just before and read just after, 64-query requests
     between mutation batches — pristine, 200 inserts, 50 updates, 100
     deletes (38 updates and the 100 deletes kill all of query 0's top
-    138, so its fetch climbs 42 -> 138 -> 522, past kernel B1's
-    shared-memory carry), one ``bta`` chunk (B4), the append that fills
-    the delta (a synchronous compaction), a ``compact_async`` build with
+    138, so its fetch climbs 42 -> 138 -> 522: B1's ``k_launches`` must
+    count k = 522), one ``bta`` chunk (B4), the append that fills the
+    delta (a synchronous compaction), a ``compact_async`` build with
     requests during it, and a build failed through
     ``faults.injected("compaction.build")`` then healed by a retry. Every
     result is held against a dense top-K over the live rows on the card;
@@ -2056,6 +2056,7 @@ def streaming_path(servers, U_all, dev):
     torch.cuda.synchronize()
     topk_mips.launches = gather_scores.launches = 0
     topk_mips.path_launches = dict.fromkeys(topk_mips.path_launches, 0)
+    topk_mips.k_launches = {}
     t_main = time.perf_counter()
     serve("pristine")
     info = {"pristine": cpu_check("pristine")}
@@ -2135,10 +2136,12 @@ def streaming_path(servers, U_all, dev):
     main_s = time.perf_counter() - t_main
     b1 = topk_mips.launches
     b1_paths = dict(topk_mips.path_launches)
+    b1_at_rung = topk_mips.k_launches.get(STREAM_LADDER_K, 0)
     b4 = gather_scores.launches
-    check(b1 > 0 and b1_paths["global_carry"] > 0,
-          f"streaming: B1 launches {b1} {b1_paths}: the k > 256 path did "
-          "not run")
+    check(b1 > 0 and b1_at_rung > 0,
+          f"streaming: B1 launches {b1} {b1_paths} by k "
+          f"{topk_mips.k_launches}: the k = {STREAM_LADDER_K} rung did not "
+          "run")
 
     gpu = gpu_name_and_power()
     for label, lat in rounds.items():
@@ -2170,7 +2173,7 @@ def streaming_path(servers, U_all, dev):
               "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/topk_mips.cu",
               "replaces": REPLACES[mode],
-              "launches": b1_paths["global_carry"],
+              "launches": b1_at_rung,
               "max_abs_err": max(v["max_abs_err"] for v in k522.values()),
               **{key: rec[key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by")},
@@ -2350,6 +2353,7 @@ def lsm_async_path(servers, U_all, dev):
     torch.cuda.synchronize()
     topk_mips.launches = gather_scores.launches = 0
     topk_mips.path_launches = dict.fromkeys(topk_mips.path_launches, 0)
+    topk_mips.k_launches = {}
     t_main = time.perf_counter()
     burst_s, infos, fold_tokens = [], {}, 0
     promote_failed_round = bta = race = None

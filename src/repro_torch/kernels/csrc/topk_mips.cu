@@ -40,34 +40,69 @@
 // register micro-tile in fp32 FMA, reading V = 4, 2 or 1 columns a load.
 // Each finished tile's scores [queries, block_m] sit in shared memory. For
 // kk <= 16 four threads per query each keep the top kk (rounded up to 4,
-// 8, 12 or 16) of a quarter of the
-// rows in registers and the query's first thread merges the four lists,
-// so every lane works on its own query (a warp-wide arg-max per query and
-// round is a chain of dependent reductions that 8 warps cannot hide);
-// longer lists take kk rounds of such an arg-max. The lists and the
-// tile's maximum go to global scratch. Selection and scoring do not
-// overlap: one ~200 KB block per SM runs them in turn.
+// 8, 12 or 16) of a quarter of the rows in registers and the query's first
+// thread merges the four lists, so every lane works on its own query (a
+// warp-wide arg-max per query and round is a chain of dependent reductions
+// that 8 warps cannot hide). Past kk = 16 a list per thread no longer fits
+// registers, and kk such arg-max rounds (two dependent warp reductions and
+// a 4-byte store each) held phase 1 at 4.03 ms at kk = 256 on an H100,
+// against 0.29 ms at k = 10 (chip_smoke.py's score_ms, PERF.md). There a
+// warp sorts the tile's block_m scores as 64-bit (value, row) keys in a
+// bitonic network held in registers (32 keys a lane at block_m = 1024):
+// O(log^2 block_m) data-parallel steps, each lane's keys a run so that only
+// 15 steps exchange across lanes, and kk coalesced stores. The caller picks
+// the selection (kernels/topk_mips.py: select_path). The sort is a kernel
+// of its own per sort width (score_tiles_kernel<V, NPER>, a tile padded to
+// 64, 256 or 1,024 keys), so its key registers weigh neither on the lists'
+// kernel nor on smaller tiles. The lists and the tile's maximum go to
+// global scratch. A block scores and selects in turn: at B = 64 one ~200
+// KB block per SM, while at small B two fit, so that one selects while the
+// other's loads fly. There the registers decide: the lists' and the
+// 256-key sort's kernels are held to 128 a thread (two blocks), since at
+// 141 the sort's kernel ran one block per SM and phase 1 at B = 8, k = 42
+// took 0.119 ms against 0.091 on an H100 (scripts/b1_rows.py, PERF.md).
 //
-// Phase 2 (gate_walk_kernel). One warp per query walks its tiles in order
-// with the top-K carry in shared memory. It reads 32 tiles' (bound, tile
-// max) per load; with the K-th best fixed between merges, one ballot marks
-// every visited tile up to the next tile whose max beats the K-th best,
-// and only that tile's list is merged (its entries strictly above the
-// K-th best, placed by rank: the carry wins ties). The warp's carry, its
-// merge buffer and the tile's candidates (4 k + 2 kk words) sit in shared
-// memory up to k = kMaxSmemK; above it the same layout lives in a global
-// scratch the caller allocates, one region per query. That path is slow
-// (every carry access goes to L1/L2) but takes any k up to the catalogue,
-// which the streaming tier's over-fetch ladder reaches (k + 4^n * 32).
+// Phase 2 (gate_walk_kernel). Each query walks its tiles in order with the
+// top-K carry: with the K-th best fixed between merges, one ballot over 32
+// tiles' (bound, tile max) marks every visited tile up to the next tile
+// whose max beats the K-th best, and only that tile's list is merged (its entries strictly above the K-th best, placed
+// by rank: the carry wins ties). So the walk is a chain of merges per
+// query, more of them as k grows (486 for the slowest query at k = 522 on
+// the LSHTC-like catalogue), each depending on the K-th best the one
+// before left. What bounds it is latency: the list and (bound, max) loads
+// of each step come from DRAM (the lists outgrow the L2 at k = 522), and
+// every merge is a few dependent shared-memory steps. The design hides the
+// loads (WalkScan: the rows and the next window's candidate list heads go
+// to the L2 ahead of the walk, the guessed next head is in flight during
+// the merge before it) and shortens the merge: each carry entry finds how
+// far it moves among the few candidates (most need no search), the
+// candidates land beside the entries that bound them without a search of
+// their own, the merge writes the other half of a ping-pong carry, and the
+// next K-th best is read from the carry and candidates before the merge
+// (merged_kth) so the next step's loads are in flight while it runs. One
+// block walks each query with one barrier per merge: warp 0 walks and
+// gathers the next candidates while the other warps merge the current
+// ones, so the merge leaves the chain (a warp a query, walking and merging
+// in turn, took 0.0887 ms against 0.0708 at B = 8, k = 42 on an H100, and
+// was no faster at B = 64, k = 10: scripts/b1_rows.py, PERF.md). The block
+// gives each carry entry a merging thread, up to 1,024 threads: 256
+// threads merged the 522 entries of the streaming ladder's rung in three
+// rounds, and 512 walked it in 0.478 ms against 0.557. The carry halves
+// and two candidate buffers (4 k + 4 kk words) sit in shared memory up to
+// what a block may opt into (k up to 14,256 at kk = 256, every rung of the
+// streaming tier's over-fetch ladder k + 4^n * 32 below it), and the carry
+// halves in a global scratch the caller allocates beyond
+// (kernels/topk_mips.py: walk_path), which the ladder's last rung, the
+// whole catalogue, can reach.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;          // phase 1: 16 query x 16 row groups
-constexpr int kWalkWarps = 4;          // phase 2: queries per block
 constexpr int kMaxQG = 64;             // queries per phase-1 block
 constexpr int kMaxStageRows = 64;
 constexpr int kMaxKeep = 16;           // longest per-thread list kept
@@ -77,7 +112,8 @@ constexpr size_t kScoreBytes = 72 * 1024;   // 64 queries x (256 + 4) rows fit
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr size_t kBarBytes = 128;      // the mbarriers, before the ring
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmemK = 256;         // phase 2: largest shared carry
+constexpr int kMaxWalkThreads = 1024;  // phase 2: a query a block
+constexpr size_t kMaxCarrySmem = kMaxSmem - 256;   // past it: static smem
 
 enum Mode { TWO_LEVEL_BATCHED = 0, TWO_LEVEL_TILE = 1, SINGLE_LEVEL = 2 };
 
@@ -200,51 +236,96 @@ __device__ __forceinline__ float key_value(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
 }
 
-// The general selection (kk > kMaxKeep): one warp picks one query's top
-// kk of the tile's block_m scores `sq` in (value desc, row asc) order.
-// Lane l holds rows l + 32 i (i < NPER) as order keys in registers; each
-// of kk rounds takes the warp's largest key (__reduce_max_sync), then its
-// lowest row (__reduce_min_sync), and the winning lane writes it and finds
-// its own next best in registers.
-template <int NPER>
-__device__ void tile_topk_rounds(const float* sq, int block_m, int kk,
-                                 int row0, float* out_v, int* out_r,
-                                 float* out_max) {
-  const int lane = threadIdx.x & 31;
-  int key[NPER];
-  uint32_t live = 0;
+// A score and its tile row as one 64-bit key whose unsigned order is
+// (value asc, row desc), so a descending sort gives (value desc, row asc):
+// the high word is order_key with its sign bit flipped (the int's order as
+// an unsigned order), the low word ~row. A real key's low word has its top
+// bit set, so 0 is below every real key: it pads a tile to the sort width.
+__device__ __forceinline__ unsigned long long sort_key(float v, int row) {
+  return (unsigned long long)((unsigned)order_key(v) ^ 0x80000000u) << 32 |
+         (unsigned)~row;
+}
+
+__device__ __forceinline__ float sort_key_value(unsigned long long key) {
+  return key_value((int)((unsigned)(key >> 32) ^ 0x80000000u));
+}
+
+// One merge step of a descending bitonic sort of 32 NPER keys over a warp,
+// blocked: element e = NPER lane + i is register i of lane `lane`, its
+// partner e ^ J. Strides J < NPER pair two registers of one lane; from
+// NPER up the pair spans lanes lane and lane ^ (J / NPER) and is exchanged
+// by __shfl_xor_sync, so only 15 of the sort's steps cross lanes (the
+// shuffles bound it). A pair whose bit SIZE of e is 0 sorts descending,
+// the other ascending; J runs down to 1.
+template <int NPER, int SIZE, int J>
+__device__ __forceinline__ void bitonic_merge(unsigned long long (&key)[NPER],
+                                              int lane) {
+  if constexpr (J < NPER) {
 #pragma unroll
-  for (int i = 0; i < NPER; ++i) {
-    const int row = lane + 32 * i;
-    key[i] = row < block_m ? order_key(sq[row]) : INT_MIN;
-    live |= (row < block_m ? 1u : 0u) << i;
-  }
-  int bk = INT_MIN, bi = -1;
-  auto scan = [&]() {
-    bk = INT_MIN;
-    bi = -1;
-#pragma unroll
-    for (int i = 0; i < NPER; ++i)
-      if (((live >> i) & 1u) && (bi < 0 || key[i] > bk)) {
-        bk = key[i];
-        bi = i;
+    for (int i = 0; i < NPER; ++i) {
+      if ((i & J) == 0) {
+        const bool desc = ((NPER * lane + i) & SIZE) == 0;
+        const unsigned long long a = key[i], b = key[i + J];
+        const bool swap = (a < b) == desc;   // equal keys may swap
+        key[i] = swap ? b : a;
+        key[i + J] = swap ? a : b;
       }
-  };
-  scan();
-  for (int j = 0; j < kk; ++j) {
-    const int m = __reduce_max_sync(0xffffffffu, bk);
-    const int mine = bi >= 0 && bk == m ? lane + 32 * bi : INT_MAX;
-    // kk <= block_m: a row is always left, so one lane wins each round
-    const int r = (int)__reduce_min_sync(0xffffffffu, (unsigned)mine);
-    if (mine == r) {
-      const float v = key_value(bk);
-      out_v[j] = v;
-      out_r[j] = row0 + r;
-      if (j == 0) *out_max = v;
-      live &= ~(1u << bi);
-      scan();
+    }
+  } else {
+    // SIZE > J >= NPER > i: bit SIZE of e is lane's alone
+    const bool desc = ((NPER * lane) & SIZE) == 0;
+    // the lower element of a descending pair keeps the larger key
+    const bool keep_max = ((lane & (J / NPER)) == 0) == desc;
+#pragma unroll
+    for (int i = 0; i < NPER; ++i) {
+      const unsigned long long other =
+          __shfl_xor_sync(0xffffffffu, key[i], J / NPER);
+      const bool take = (other > key[i]) == keep_max;
+      key[i] = take ? other : key[i];
     }
   }
+  if constexpr (J > 1) bitonic_merge<NPER, SIZE, J / 2>(key, lane);
+}
+
+template <int NPER, int SIZE = 2>
+__device__ __forceinline__ void bitonic_sort(unsigned long long (&key)[NPER],
+                                             int lane) {
+  bitonic_merge<NPER, SIZE, SIZE / 2>(key, lane);
+  if constexpr (SIZE < 32 * NPER) bitonic_sort<NPER, SIZE * 2>(key, lane);
+}
+
+// The tile-wide selection (kMaxKeep < kk <= block_m): one warp sorts one
+// query's block_m scores `sq` (its row of the tile-score buffer) as keys,
+// padded with 0 to 32 NPER >= block_m, all in registers and shuffles. The
+// first kk go out as (value, row) pairs through the same row, now free:
+// each lane writes its run of NPER there, then every store to the scratch
+// takes 32 consecutive entries. Lane 0 writes key 0's value as the max.
+template <int NPER>
+__device__ void tile_topk_sort(float* sq, int block_m, int kk, int row0,
+                               float* out_v, int* out_r, float* out_max) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long key[NPER];
+#pragma unroll
+  for (int i = 0; i < NPER; ++i) {
+    const int row = NPER * lane + i;
+    key[i] = row < block_m ? sort_key(sq[row], row) : 0ull;
+  }
+  bitonic_sort<NPER>(key, lane);
+  if (lane == 0) *out_max = sort_key_value(key[0]);
+  int* sr = reinterpret_cast<int*>(sq);
+  __syncwarp();                    // every lane has read its scores
+#pragma unroll
+  for (int i = 0; i < NPER; ++i)
+    if (NPER * lane + i < kk) sq[NPER * lane + i] = sort_key_value(key[i]);
+  __syncwarp();
+  for (int j = lane; j < kk; j += 32) out_v[j] = sq[j];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < NPER; ++i)
+    if (NPER * lane + i < kk)
+      sr[NPER * lane + i] = row0 + (int)~(unsigned)key[i];
+  __syncwarp();
+  for (int j = lane; j < kk; j += 32) out_r[j] = sr[j];
 }
 
 // The common selection (kk <= KB <= kMaxKeep). Thread (q, s) = (tid / 4,
@@ -334,40 +415,48 @@ __device__ void select_tile_lists(const float* sc, int stride,
 }
 
 // The selection of one finished tile t for every query of the group that
-// has t in its own live prefix (phase 2 reads no other).
-__device__ void select_tile(const float* sc, int stride, const int* ntl,
+// has t in its own live prefix (phase 2 reads no other): the lists for
+// NPER = 0, else the sort of 32 NPER keys. Each is a kernel of its own,
+// since a kernel takes the registers of its largest path: in the lists'
+// kernel the sort's keys (64 registers a thread at block_m = 1024) took
+// it from 117 to 255 registers with spills, one block per SM where two
+// fit at B = 8, and phase 1 at B = 8, k = 10 from 0.106 to 0.19 ms on an
+// H100 (PERF.md).
+template <int NPER>
+__device__ void select_tile(float* sc, int stride, const int* ntl,
                             int nq, int t, int qbase, int n_blocks,
                             int block_m, int kk, float* keep_v, int* keep_r,
                             float* lvals, int* lids, float* tmax) {
-  if (kk <= 4)
-    select_tile_lists<4>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
-                         kk, keep_v, keep_r, lvals, lids, tmax);
-  else if (kk <= 8)
-    select_tile_lists<8>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
-                         kk, keep_v, keep_r, lvals, lids, tmax);
-  else if (kk <= 12)
-    select_tile_lists<12>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
-                          kk, keep_v, keep_r, lvals, lids, tmax);
-  else if (kk <= kMaxKeep)
-    select_tile_lists<16>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
-                          kk, keep_v, keep_r, lvals, lids, tmax);
-  else
+  if constexpr (NPER == 0) {
+    if (kk <= 4)
+      select_tile_lists<4>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
+                           kk, keep_v, keep_r, lvals, lids, tmax);
+    else if (kk <= 8)
+      select_tile_lists<8>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m,
+                           kk, keep_v, keep_r, lvals, lids, tmax);
+    else if (kk <= 12)
+      select_tile_lists<12>(sc, stride, ntl, nq, t, qbase, n_blocks,
+                            block_m, kk, keep_v, keep_r, lvals, lids, tmax);
+    else if (kk <= kMaxKeep)
+      select_tile_lists<16>(sc, stride, ntl, nq, t, qbase, n_blocks,
+                            block_m, kk, keep_v, keep_r, lvals, lids, tmax);
+  } else {
     for (int q = threadIdx.x >> 5; q < nq; q += kThreads / 32) {
       if (t >= ntl[q]) continue;
       const size_t slot = (size_t)(qbase + q) * n_blocks + t;
-      if (block_m <= 256)
-        tile_topk_rounds<8>(sc + (size_t)q * stride, block_m, kk,
-                            t * block_m, lvals + slot * kk,
-                            lids + slot * kk, tmax + slot);
-      else
-        tile_topk_rounds<32>(sc + (size_t)q * stride, block_m, kk,
-                             t * block_m, lvals + slot * kk,
-                             lids + slot * kk, tmax + slot);
+      float* sq = sc + (size_t)q * stride;
+      float* ov = lvals + slot * kk;
+      int* orow = lids + slot * kk;
+      tile_topk_sort<NPER>(sq, block_m, kk, t * block_m, ov, orow,
+                           tmax + slot);
     }
+  }
 }
 
-template <int V>
-__global__ void __launch_bounds__(kThreads, 1)
+// Two blocks an SM where shared memory allows (the header), but for the
+// 1,024-key sort, whose keys alone take 64 registers a thread.
+template <int V, int NPER>
+__global__ void __launch_bounds__(kThreads, NPER <= 8 ? 2 : 1)
 score_tiles_kernel(const float* __restrict__ T, const float* __restrict__ U,
                    const int* __restrict__ live, float* __restrict__ lvals,
                    int* __restrict__ lids, float* __restrict__ tmax, int B,
@@ -484,152 +573,341 @@ score_tiles_kernel(const float* __restrict__ T, const float* __restrict__ U,
     __syncthreads();               // the stage is read and the scores land
     if (i + n_stages < n_work) issue(i + n_stages);
     if (s == n_sub - 1) {
-      select_tile(sc, stride, ntl, nq, t, qbase, n_blocks, block_m, kk,
-                  keep_v, keep_r, lvals, lids, tmax);
+      select_tile<NPER>(sc, stride, ntl, nq, t, qbase, n_blocks, block_m, kk,
+                        keep_v, keep_r, lvals, lids, tmax);
       __syncthreads();             // the next tile overwrites the scores
     }
   }
 }
 
-__global__ void __launch_bounds__(kWalkWarps * 32)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// Every 128-byte line of the n floats from p into the L2, lane by lane.
+__device__ __forceinline__ void prefetch_row(const float* p, int n,
+                                             int lane) {
+  for (int i = 32 * lane; i < n; i += 32 * 32) prefetch_l2(p + i);
+  if (lane == 0 && n > 0) prefetch_l2(p + n - 1);
+}
+
+// Candidates strictly above v among c (descending), `first`/`last` being
+// the first and the last: none or all for most carry entries, else a
+// binary search.
+__device__ __forceinline__ int above(const float* cand_v, int c, float first,
+                                     float last, float v) {
+  if (last > v) return c;
+  if (!(first > v)) return 0;
+  int lo = 1, hi = c - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cand_v[mid] > v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Merge c candidates `cand_v/cand_r` (descending, each above the carry's
+// last entry) into the carry `cv/ci` (k entries, descending) as `nv/ni`,
+// the carry winning ties. Thread t of nt (a multiple of 32, consecutive t
+// in consecutive lanes) takes carry entries j = t, t + nt, ...: entry j
+// moves down by n_j, the candidates strictly above it, and the candidates
+// q in [n_(j-1), n_j) rank right after entry j - 1, at q + j, so a
+// candidate is placed with no search of its own (n_(j-1) comes from the
+// lane below, or a second search in lane 0).
+__device__ __forceinline__ void merge_carry(const float* cv, const int* ci,
+                                            float* nv, int* ni,
+                                            const float* cand_v,
+                                            const int* cand_r, int c, int k,
+                                            int t, int nt) {
+  const int lane = t & 31;
+  const float first = cand_v[0], last = cand_v[c - 1];
+  for (int j0 = 0; j0 < k; j0 += nt) {         // uniform over a warp
+    const int j = j0 + t;
+    int n = 0;
+    if (j < k) {
+      const float v = cv[j];
+      n = above(cand_v, c, first, last, v);
+      if (j + n < k) {
+        nv[j + n] = v;
+        ni[j + n] = ci[j];
+      }
+    }
+    int lo = __shfl_up_sync(0xffffffffu, n, 1);
+    if (lane == 0)
+      lo = j == 0 || j >= k ? 0 : above(cand_v, c, first, last, cv[j - 1]);
+    if (j < k)
+      for (int q = lo; q < n && q + j < k; ++q) {
+        nv[q + j] = cand_v[q];
+        ni[q + j] = cand_r[q];
+      }
+  }
+}
+
+// The merge's K-th best, from the carry and candidates before it (one
+// warp): m candidates make the top k where candidate m - 1 still beats
+// carry entry k - m (ties go to the carry), and the K-th best is the
+// lower of candidate m - 1 and carry entry k - 1 - m.
+__device__ __forceinline__ float merged_kth(const float* cv,
+                                            const float* cand_v, int c,
+                                            int k, int lane) {
+  int m = 0;
+  for (int q0 = 0; q0 < c; q0 += 32) {
+    const int q = q0 + lane;
+    const uint32_t in =
+        __ballot_sync(0xffffffffu, q < c && cand_v[q] > cv[k - 1 - q]);
+    m += __popc(in);
+    if (in != 0xffffffffu) break;
+  }
+  const float lc = cand_v[m - 1];
+  return m >= k ? lc : fminf(lc, cv[k - 1 - m]);
+}
+
+// One warp's gate walk over a query's tiles. Each lane holds its tile's
+// (bound, max) of three windows of 32 (the next two in flight); one ballot
+// marks every visited tile up to the next tile whose max beats the K-th
+// best. Its list is read from global scratch (from DRAM where the scratch
+// outgrows the 50 MB L2: 161 MB of lists at k = 522, B = 64 and 1,230 live
+// tiles), and every merge of a query's chain would wait on that load, so
+// the latency is hidden three ways: the query's (bound, max) rows go to
+// the L2 at the start, each window's candidate tiles (bound and max above
+// the K-th best now, a superset of the ones merged later) have their list
+// heads sent to the L2 a window ahead, and the head of the tile the walk
+// guesses it merges next is in flight during the merge before it.
+struct WalkScan {
+  int n_tiles, kk, t0 = 0, visited = 0, guess = -1;
+  uint32_t done = 0;
+  float bnd[3], mx[3], hv = kNegInf;
+  int hr = -1;
+  const float* brow;
+  const float* mrow;
+  const float* lv;    // the query's lists, kk a tile
+  const int* li;
+
+  __device__ __forceinline__ float at(const float* row, int t) const {
+    return t < n_tiles ? row[t] : kNegInf;   // never visited
+  }
+
+  __device__ __forceinline__ void prefetch_head(int tile, float lb,
+                                                int w) const {
+    if (tile < n_tiles && bnd[w] > lb && mx[w] > lb) {
+      const int n = kk < 32 ? kk : 32;
+      prefetch_l2(lv + (size_t)tile * kk);
+      prefetch_l2(lv + (size_t)tile * kk + n - 1);
+      prefetch_l2(li + (size_t)tile * kk);
+      prefetch_l2(li + (size_t)tile * kk + n - 1);
+    }
+  }
+
+  __device__ __forceinline__ void start(int lane) {
+    prefetch_row(brow, n_tiles, lane);
+    prefetch_row(mrow, n_tiles, lane);
+#pragma unroll
+    for (int w = 0; w < 3; ++w) {
+      bnd[w] = at(brow, 32 * w + lane);
+      mx[w] = at(mrow, 32 * w + lane);
+    }
+    prefetch_head(32 + lane, kNegInf, 1);
+  }
+
+  // The next tile to merge under lb (counting the visited tiles up to
+  // it), or -1 past the last tile. On a tile, `v`/`r` hold the lane's
+  // entry of its list head (lanes below kk) and the next guess's head is
+  // in flight.
+  __device__ __forceinline__ int next(float lb, int lane, float& v,
+                                      int& r) {
+    while (t0 < n_tiles) {
+      const uint32_t vis = __ballot_sync(0xffffffffu, bnd[0] > lb) & ~done;
+      const uint32_t mrg =
+          __ballot_sync(0xffffffffu, bnd[0] > lb && mx[0] > lb) & ~done;
+      if (mrg == 0) {
+        visited += __popc(vis);
+        t0 += 32;
+        done = 0;
+        bnd[0] = bnd[1];
+        mx[0] = mx[1];
+        bnd[1] = bnd[2];
+        mx[1] = mx[2];
+        bnd[2] = at(brow, t0 + 64 + lane);
+        mx[2] = at(mrow, t0 + 64 + lane);
+        prefetch_head(t0 + 32 + lane, lb, 1);
+        continue;
+      }
+      const int p = __ffs(mrg) - 1;
+      const uint32_t upto = p == 31 ? 0xffffffffu : ((1u << (p + 1)) - 1u);
+      visited += __popc(vis & upto);
+      done |= upto;
+      const int tile = t0 + p;
+      if (tile == guess) {
+        v = hv;
+        r = hr;
+      } else if (lane < kk) {
+        v = lv[(size_t)tile * kk + lane];
+        r = li[(size_t)tile * kk + lane];
+      }
+      const uint32_t after = mrg & ~upto;
+      guess = after ? t0 + __ffs(after) - 1 : -1;
+      if (!after) {
+        const uint32_t m2 =
+            __ballot_sync(0xffffffffu, bnd[1] > lb && mx[1] > lb);
+        if (m2) guess = t0 + 32 + __ffs(m2) - 1;
+      }
+      if (guess >= 0 && lane < kk) {
+        hv = lv[(size_t)guess * kk + lane];
+        hr = li[(size_t)guess * kk + lane];
+      }
+      return tile;
+    }
+    return -1;
+  }
+
+  // Tile `tile`'s candidates, its list entries strictly above lb (a
+  // prefix), into `cand_v/cand_r`, and (tile, count) into `ctrl` by lane
+  // 0; tile -1 past the last. `v`/`r` are the lane's entry of its head. A
+  // head all above lb is followed into the rest of the list, 256 entries
+  // a round of loads.
+  __device__ __forceinline__ void gather(int tile, float v, int r,
+                                         float lb, int lane, float* cand_v,
+                                         int* cand_r, int* ctrl) const {
+    int c = 0;
+    if (tile >= 0) {
+      const bool in = lane < kk && v > lb;
+      if (in) {
+        cand_v[lane] = v;
+        cand_r[lane] = r;
+      }
+      uint32_t m = __ballot_sync(0xffffffffu, in);
+      c = __popc(m);
+      const float* tv = lv + (size_t)tile * kk;
+      const int* tr = li + (size_t)tile * kk;
+      for (int j0 = 32; m == 0xffffffffu && j0 < kk; j0 += 256) {
+        float x[8];
+        int y[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = j0 + 32 * u + lane;
+          x[u] = j < kk ? tv[j] : kNegInf;
+          y[u] = j < kk ? tr[j] : -1;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (m != 0xffffffffu) break;
+          const int j = j0 + 32 * u + lane;
+          const bool inj = j < kk && x[u] > lb;
+          if (inj) {
+            cand_v[j] = x[u];
+            cand_r[j] = y[u];
+          }
+          m = __ballot_sync(0xffffffffu, inj);
+          c += __popc(m);
+        }
+      }
+    }
+    if (lane == 0) {
+      ctrl[0] = tile;
+      ctrl[1] = c;
+    }
+  }
+
+  __device__ __forceinline__ void next_merge(float lb, int lane,
+                                             float* cand_v, int* cand_r,
+                                             int* ctrl) {
+    float v = kNegInf;
+    int r = -1;
+    const int tile = next(lb, lane, v, r);
+    gather(tile, v, r, lb, lane, cand_v, cand_r, ctrl);
+  }
+};
+
+// Phase 2: one block per query, one barrier per merge.
+// Warp 0 walks: while warps 1.. merge the current candidates into the
+// other half of a ping-pong carry, it takes the merge's K-th best from the
+// carry and candidates (merged_kth), finds the next tile under it and
+// gathers that tile's candidates into the other candidate buffer.
+// The candidates (2 x 2 kk words) sit in shared memory; the carry halves
+// (2 x 2 k words) too, or in the query's region of `gcarry` when they do
+// not fit (__syncthreads orders the block's global accesses as it does
+// its shared ones).
+__global__ void __launch_bounds__(kMaxWalkThreads)
 gate_walk_kernel(const float* __restrict__ bounds,
                  const int* __restrict__ live,
                  const float* __restrict__ lvals,
                  const int* __restrict__ lids,
                  const float* __restrict__ tmax, float* __restrict__ out_vals,
                  int* __restrict__ out_idx, int* __restrict__ out_stats,
-                 float* gcarry, int B, int n_blocks, int block_m,
-                 int superblock, int k, int kk, int mode) {
+                 float* gcarry, int n_blocks, int block_m, int superblock,
+                 int k, int kk, int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWalkWarps + warp;
-  if (b >= B) return;                 // no block-wide barrier below
-  // the warp's buffers: shared memory, or its region of the global
-  // scratch for k > kMaxSmemK (__syncwarp orders global accesses too)
-  const size_t words = 4 * (size_t)k + 2 * (size_t)kk;
-  float* cv = gcarry != nullptr
-                  ? gcarry + (size_t)b * words
-                  : reinterpret_cast<float*>(smem) + (size_t)warp * words;
+  __shared__ int ctrl[2][2];          // the next two merges' (tile, count)
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  // candidate buffer s: values at cand + 2 kk s, rows kk words on
+  float* const cand = reinterpret_cast<float*>(smem);
+  auto cand_v = [&](int s) { return cand + 2 * kk * s; };
+  auto cand_r = [&](int s) {
+    return reinterpret_cast<int*>(cand + 2 * kk * s + kk);
+  };
+  float* cv = gcarry != nullptr ? gcarry + (size_t)b * 4 * k : cand + 4 * kk;
   int* ci = reinterpret_cast<int*>(cv + k);
   float* nv = reinterpret_cast<float*>(ci + k);
   int* ni = reinterpret_cast<int*>(nv + k);
-  float* cand_v = reinterpret_cast<float*>(ni + k);
-  int* cand_r = reinterpret_cast<int*>(cand_v + kk);
 
-  for (int j = lane; j < k; j += 32) {
+  for (int j = tid; j < k; j += nt) {
     cv[j] = kNegInf;
     ci[j] = -1;
   }
-  __syncwarp();
-  const int n_tiles = tiles_of(live, b, mode, n_blocks, superblock);
-  const float* brow = bounds + (size_t)b * n_blocks;
-  const float* mrow = tmax + (size_t)b * n_blocks;
-  float lb = kNegInf;
-  int visited = 0;
-
-  float nb = 0.f, nm = 0.f;
-  if (lane < n_tiles) {
-    nb = brow[lane];
-    nm = mrow[lane];
+  WalkScan w;                          // warp 0's
+  w.n_tiles = tiles_of(live, b, mode, n_blocks, superblock);
+  w.kk = kk;
+  w.brow = bounds + (size_t)b * n_blocks;
+  w.mrow = tmax + (size_t)b * n_blocks;
+  w.lv = lvals + (size_t)b * n_blocks * kk;
+  w.li = lids + (size_t)b * n_blocks * kk;
+  if (tid < 32) {
+    w.start(lane);
+    w.next_merge(kNegInf, lane, cand_v(0), cand_r(0), ctrl[0]);
   }
-  for (int t0 = 0; t0 < n_tiles; t0 += 32) {
-    const bool valid = t0 + lane < n_tiles;
-    const float bnd = nb, mx = nm;
-    if (t0 + 32 + lane < n_tiles) {        // the next 32 tiles, in flight
-      nb = brow[t0 + 32 + lane];
-      nm = mrow[t0 + 32 + lane];
+  __syncthreads();                    // the carry and first merge are in
+  for (int s = 0;; s ^= 1) {
+    const int tile = ctrl[s][0], c = ctrl[s][1];
+    if (tile < 0) break;              // uniform over the block
+    if (tid < 32) {
+      const float lb = merged_kth(cv, cand_v(s), c, k, lane);
+      w.next_merge(lb, lane, cand_v(s ^ 1), cand_r(s ^ 1), ctrl[s ^ 1]);
+    } else {
+      merge_carry(cv, ci, nv, ni, cand_v(s), cand_r(s), c, k, tid - 32,
+                  nt - 32);
     }
-    uint32_t done = 0;
-    for (;;) {
-      const uint32_t vis =
-          __ballot_sync(0xffffffffu, valid && bnd > lb) & ~done;
-      const uint32_t mrg =
-          __ballot_sync(0xffffffffu, valid && bnd > lb && mx > lb) & ~done;
-      if (mrg == 0) {
-        visited += __popc(vis);
-        break;
-      }
-      const int p = __ffs(mrg) - 1;
-      const uint32_t upto = p == 31 ? 0xffffffffu : ((1u << (p + 1)) - 1u);
-      visited += __popc(vis & upto);
-      done |= upto;
-
-      // tile t0 + p: its list entries strictly above lb are a prefix
-      const size_t slot = ((size_t)b * n_blocks + t0 + p) * kk;
-      int c = 0;
-      for (int j0 = 0; j0 < kk; j0 += 32) {
-        const int j = j0 + lane;
-        const float v = j < kk ? lvals[slot + j] : kNegInf;
-        const bool in = j < kk && v > lb;
-        if (in) {
-          cand_v[j] = v;
-          cand_r[j] = lids[slot + j];
-        }
-        const uint32_t m = __ballot_sync(0xffffffffu, in);
-        c += __popc(m);
-        if (m != 0xffffffffu) break;
-      }
-      __syncwarp();
-      // carry entry j moves down past every candidate strictly above it
-      for (int j = lane; j < k; j += 32) {
-        const float v = cv[j];
-        int lo = 0, hi = c;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (cand_v[mid] > v) lo = mid + 1; else hi = mid;
-        }
-        const int pos = j + lo;
-        if (pos < k) {
-          nv[pos] = v;
-          ni[pos] = ci[j];
-        }
-      }
-      // candidate q ranks after every carry entry >= it and the
-      // candidates ahead of it in its list
-      for (int q = lane; q < c; q += 32) {
-        const float s = cand_v[q];
-        int lo = 0, hi = k;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (cv[mid] >= s) lo = mid + 1; else hi = mid;
-        }
-        const int pos = q + lo;
-        if (pos < k) {
-          nv[pos] = s;
-          ni[pos] = cand_r[q];
-        }
-      }
-      __syncwarp();
-      for (int j = lane; j < k; j += 32) {
-        cv[j] = nv[j];
-        ci[j] = ni[j];
-      }
-      __syncwarp();
-      lb = cv[k - 1];
-    }
+    __syncthreads();
+    float* tv = cv;
+    cv = nv;
+    nv = tv;
+    int* ti = ci;
+    ci = ni;
+    ni = ti;
   }
 
-  for (int j = lane; j < k; j += 32) {
+  for (int j = tid; j < k; j += nt) {
     out_vals[(size_t)b * k + j] = cv[j];
     out_idx[(size_t)b * k + j] = ci[j];
   }
-  if (lane == 0) {
-    out_stats[b * 3 + 0] = visited * block_m;
-    out_stats[b * 3 + 1] = visited;
-    out_stats[b * 3 + 2] = n_tiles;
+  if (tid == 0) {
+    out_stats[b * 3 + 0] = w.visited * block_m;
+    out_stats[b * 3 + 1] = w.visited;
+    out_stats[b * 3 + 2] = w.n_tiles;
   }
 }
 
-template <int V>
+template <int V, int NPER>
 cudaError_t launch_score(const Config& c, dim3 grid, cudaStream_t stream,
                          const float* T, const float* U, const int* live,
                          float* lvals, int* lids, float* tmax, int B, int R,
                          int n_blocks, int block_m, int superblock, int kk,
                          int num_real, int mode, int bulk) {
   cudaError_t err = cudaFuncSetAttribute(
-      score_tiles_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)c.smem);
+      score_tiles_kernel<V, NPER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0, dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -637,7 +915,8 @@ cudaError_t launch_score(const Config& c, dim3 grid, cudaStream_t stream,
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, score_tiles_kernel<V>, kThreads, c.smem)) != cudaSuccess)
+           &per_sm, score_tiles_kernel<V, NPER>, kThreads, c.smem)) !=
+      cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // enough tile runs that the groups together fill every SM once
@@ -645,7 +924,7 @@ cudaError_t launch_score(const Config& c, dim3 grid, cudaStream_t stream,
       ((long long)sms * per_sm + grid.y - 1) / grid.y;
   grid.x = (unsigned)(want < n_blocks ? want : n_blocks);
   if (grid.x == 0) grid.x = 1;
-  score_tiles_kernel<V><<<grid, kThreads, c.smem, stream>>>(
+  score_tiles_kernel<V, NPER><<<grid, kThreads, c.smem, stream>>>(
       T, U, live, lvals, lids, tmax, B, R, n_blocks, block_m, superblock, kk,
       num_real, mode, c.qg, c.stage_rows, c.n_stages, bulk);
   return cudaGetLastError();
@@ -657,21 +936,23 @@ cudaError_t launch_score(const Config& c, dim3 grid, cudaStream_t stream,
 // cudaError_t of its launch (0 = launched) and neither synchronises; `live`
 // may be null in SINGLE_LEVEL mode. The caller allocates the scratch:
 // lvals/lids [B, n_blocks, kk] and tmax [B, n_blocks], kk = min(k, block_m),
-// for k > 256 also carry [B, 4 k + 2 kk] (4-byte words; null otherwise),
-// and runs phase 1 before phase 2 on one stream. T must be 16-byte
-// aligned.
+// for a k whose carry does not fit shared memory also carry [B, 4 k]
+// (4-byte words; null otherwise), and runs phase 1 before phase 2 on one
+// stream. T must be 16-byte aligned.
 
 // Phase 1: every (query, tile) of each query group's live prefix scored;
-// per (query, tile) its top kk rows and its maximum into the scratch.
+// per (query, tile) its top kk rows and its maximum into the scratch,
+// selected by the sort when `sort` is set, else by the register lists
+// (kk <= kMaxKeep).
 extern "C" int topk_mips_score_launch(const float* T, const float* U,
                                       const int* live, float* lvals,
                                       int* lids, float* tmax, int B, int R,
                                       int n_blocks, int block_m,
                                       int superblock, int kk, int num_real,
-                                      int mode, void* stream) {
+                                      int mode, int sort, void* stream) {
   if (mode < 0 || mode > SINGLE_LEVEL || B <= 0 || R <= 0 || kk <= 0 ||
       block_m <= 0 || block_m > 1024 || kk > block_m || n_blocks < 0 ||
-      ((uintptr_t)T & 15u))
+      ((uintptr_t)T & 15u) || (!sort && kk > kMaxKeep))
     return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return (int)cudaSuccess;
   const Config c = phase1_config(B, R, block_m);
@@ -679,24 +960,37 @@ extern "C" int topk_mips_score_launch(const float* T, const float* U,
   const int bulk = ((long long)block_m * R) % 4 == 0 ? 1 : 0;
   dim3 grid(1, (B + c.qg - 1) / c.qg);
   cudaStream_t s = (cudaStream_t)stream;
+  // the sort pads a tile to 64, 256 or 1024 keys: one kernel each
+  const int nper = !sort ? 0 : block_m <= 64 ? 2 : block_m <= 256 ? 8 : 32;
+  auto launch = [&](auto v, auto n) {
+    return launch_score<decltype(v)::value, decltype(n)::value>(
+        c, grid, s, T, U, live, lvals, lids, tmax, B, R, n_blocks, block_m,
+        superblock, kk, num_real, mode, bulk);
+  };
+  auto by_width = [&](auto v) {
+    using std::integral_constant;
+    switch (nper) {
+      case 0: return launch(v, integral_constant<int, 0>());
+      case 2: return launch(v, integral_constant<int, 2>());
+      case 8: return launch(v, integral_constant<int, 8>());
+      default: return launch(v, integral_constant<int, 32>());
+    }
+  };
+  using std::integral_constant;
   cudaError_t err;
   if (R % 4 == 0)
-    err = launch_score<4>(c, grid, s, T, U, live, lvals, lids, tmax, B, R,
-                          n_blocks, block_m, superblock, kk, num_real, mode,
-                          bulk);
+    err = by_width(integral_constant<int, 4>());
   else if (R % 2 == 0)
-    err = launch_score<2>(c, grid, s, T, U, live, lvals, lids, tmax, B, R,
-                          n_blocks, block_m, superblock, kk, num_real, mode,
-                          bulk);
+    err = by_width(integral_constant<int, 2>());
   else
-    err = launch_score<1>(c, grid, s, T, U, live, lvals, lids, tmax, B, R,
-                          n_blocks, block_m, superblock, kk, num_real, mode,
-                          bulk);
+    err = by_width(integral_constant<int, 1>());
   return (int)err;
 }
 
-// Phase 2: one warp per query walks the gate over the phase-1 scratch;
-// its carry is in shared memory for k <= 256, in `carry` above.
+// Phase 2 over the phase-1 scratch, one block per query: its carry in
+// shared memory when `carry` is null (4 (4 k + 4 kk) bytes, within
+// kMaxCarrySmem), else in `carry` (4 k words a query; the candidates, 4 kk
+// words, stay in shared memory).
 extern "C" int topk_mips_walk_launch(const float* bounds, const int* live,
                                      const float* lvals, const int* lids,
                                      const float* tmax, float* vals,
@@ -704,19 +998,25 @@ extern "C" int topk_mips_walk_launch(const float* bounds, const int* live,
                                      int B, int n_blocks, int block_m,
                                      int superblock, int k, int kk, int mode,
                                      void* stream) {
-  const bool global_carry = k > kMaxSmemK;
   if (mode < 0 || mode > SINGLE_LEVEL || B <= 0 || k <= 0 || kk <= 0 ||
-      kk > k || block_m <= 0 || n_blocks < 0 ||
-      (global_carry && carry == nullptr))
+      kk > k || block_m <= 0 || n_blocks < 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   const size_t smem =
-      global_carry ? 0
-                   : sizeof(float) * kWalkWarps * (4 * (size_t)k + 2 * kk);
-  gate_walk_kernel<<<(B + kWalkWarps - 1) / kWalkWarps, kWalkWarps * 32,
-                     smem, (cudaStream_t)stream>>>(
-      bounds, live, lvals, lids, tmax, vals, idx, stats,
-      global_carry ? carry : nullptr, B, n_blocks, block_m, superblock, k,
-      kk, mode);
+      sizeof(float) * (4 * (size_t)kk + (carry != nullptr ? 0 : 4 * (size_t)k));
+  if (smem > kMaxCarrySmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gate_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // warp 0 walks, and each carry entry has a thread of its own to merge
+  const int want = 32 + (k + 31) / 32 * 32;
+  const int threads = want < kMaxWalkThreads ? want : kMaxWalkThreads;
+  gate_walk_kernel<<<B, threads, smem, s>>>(
+      bounds, live, lvals, lids, tmax, vals, idx, stats, carry, n_blocks,
+      block_m, superblock, k, kk, mode);
   return (int)cudaGetLastError();
 }
 

@@ -23,9 +23,24 @@ Rows at or past ``num_real`` are zero padding and score ``NEG_INF``.
 :func:`topk_mips` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches ``csrc/topk_mips.cu`` or raises. The kernel
 runs in two phases: every tile of the live prefix scored once per query
-group, each (query, tile)'s top ``min(k, block_m)`` kept, then one warp
-per query walks the gate over those lists (tests/test_torch_topk_mips.py
+group, each (query, tile)'s top ``kk = min(k, block_m)`` kept, then each
+query walks the gate over those lists (tests/test_torch_topk_mips.py
 holds that decomposition, in numpy, against :func:`topk_mips_plain`).
+
+Each phase has paths by size. The wrapper picks them (:func:`select_path`,
+:func:`walk_path`), counts them in ``topk_mips.path_launches`` and names
+them to the launches, which run that path or fail. Phase 1 selects a
+tile's top kk with per-thread register lists up to kk = ``MAX_LIST_KK``
+(``select_lists``) and past it with a warp's bitonic sort of the tile's
+64-bit (value, row) keys (``select_sort``), in kernels of their own: kk
+dependent warp arg-max rounds were what bounded it there. Phase 2 is a
+chain of dependent merges per query, bound by the latency of each step's
+loads and shared-memory steps: its loads are sent ahead to the L2 and
+overlapped with the merge before, and a block walks each query, warp 0
+walking while the others merge, a thread a carry entry up to 1,024
+threads. Its carry sits in shared memory where :func:`walk_path` finds it
+fits ``CARRY_SMEM_BYTES`` (``walk_shared``), else in a global scratch
+(``walk_global``).
 """
 
 from __future__ import annotations
@@ -42,12 +57,30 @@ MODES = ("two_level_batched", "two_level_tile", "single_level")
 
 #: Kernel limits (the wrapper raises above them): block_m bounds the
 #: tile-score buffer and the per-tile selection, R the shared-memory ring
-#: and query copy. k has no limit: the gate walk keeps its carry in shared
-#: memory up to SMEM_K and in a global scratch above it (slower; the
-#: streaming tier's over-fetch ladder reaches such k).
-SMEM_K = 256
+#: and query copy. k has no limit (see :func:`walk_path`).
 MAX_BLOCK_M = 1024
 MAX_R = 4096
+
+#: Phase 1's per-thread register lists take kk up to this; the sort above.
+MAX_LIST_KK = 16
+#: The most dynamic shared memory the walk's carry may take: a block's
+#: opt-in 232,448 bytes less 256 for its static shared memory.
+CARRY_SMEM_BYTES = 227 * 1024 - 256
+
+
+def select_path(kk: int) -> str:
+    """Phase 1's selection of a tile's top ``kk``."""
+    return "select_lists" if kk <= MAX_LIST_KK else "select_sort"
+
+
+def walk_path(k: int, kk: int) -> str:
+    """Phase 2's walk, a block a query: its two carry halves and two
+    candidate buffers (``4 k + 4 kk`` 4-byte words) in shared memory where
+    they fit ``CARRY_SMEM_BYTES`` (k up to 14,256 at kk = 256, 13,488 at
+    kk = 1,024), else the carry halves in a global scratch."""
+    if 4 * (4 * k + 4 * kk) <= CARRY_SMEM_BYTES:
+        return "walk_shared"
+    return "walk_global"
 
 
 def _live_tiles(mode: str, live: Optional[torch.Tensor], B: int,
@@ -129,12 +162,12 @@ def query_slices(B: int, n_blocks: int, kk: int,
                  budget: int = SCRATCH_BYTES, k: int = 0) -> list:
     """``(b0, b1)`` query slices whose scratch — ``kk`` (value, row) pairs
     and one maximum per (query, tile), plus the gate walk's global carry
-    of ``4 k + 2 kk`` words when ``k > SMEM_K`` — stays within ``budget``
-    bytes (one query at the least); slices hold whole phase-1 groups of
-    64 where they can."""
+    of ``4 k`` words where :func:`walk_path` puts it there — stays
+    within ``budget`` bytes (one query at the least); slices hold whole
+    phase-1 groups of 64 where they can."""
     per_query = n_blocks * (8 * kk + 4)
-    if k > SMEM_K:
-        per_query += 4 * (4 * k + 2 * kk)
+    if k > 0 and walk_path(k, kk) == "walk_global":
+        per_query += 4 * 4 * k
     rows = max(1, budget // max(per_query, 1))
     if rows >= 64:
         rows -= rows % 64
@@ -179,11 +212,13 @@ class KernelPhases:
         self.lids = torch.empty_like(self.lvals, dtype=torch.int32)
         self.tmax = torch.empty((rows, self.n_blocks), dtype=torch.float32,
                                 device=dev)
-        # the gate walk's carry, merge buffer and candidates per query,
-        # in global memory past SMEM_K (4-byte words; floats and ints)
-        self.carry = (torch.empty((rows, 4 * k + 2 * self.kk),
+        # the gate walk's two carry halves per query, in global memory
+        # where shared memory cannot hold them (4-byte words; floats and
+        # ints)
+        self.paths = (select_path(self.kk), walk_path(k, self.kk))
+        self.carry = (torch.empty((rows, 4 * k),
                                   dtype=torch.float32, device=dev)
-                      if k > SMEM_K else None)
+                      if self.paths[1] == "walk_global" else None)
 
     @property
     def scratch_bytes(self) -> int:
@@ -197,48 +232,57 @@ class KernelPhases:
             raise RuntimeError(f"topk_mips {phase} launch failed: CUDA "
                                f"error {err} ({msg})")
 
-    def _stream(self):
-        return torch.cuda.current_stream(self.vals.device).cuda_stream
-
     @staticmethod
     def _ptr(t, b0):
         """Address of row ``b0`` of ``t`` (None for an absent ``live``)."""
-        return None if t is None else t[b0:].data_ptr()
+        return (None if t is None
+                else t.data_ptr() + b0 * t.stride(0) * t.element_size())
 
-    def score(self, i: int = 0) -> None:
-        """Phase 1 on query slice ``i``."""
+    def _score(self, i: int, stream: int) -> None:
         T, U, _, live = self.operands
         b0, b1 = self.slices[i]
         R, block_m, superblock, _, num_real, mode = self.shape
-        with torch.cuda.device(self.vals.device):
-            err = self.lib.topk_mips_score_launch(
-                T.data_ptr(), self._ptr(U, b0), self._ptr(live, b0),
-                self.lvals.data_ptr(), self.lids.data_ptr(),
-                self.tmax.data_ptr(), b1 - b0, R, self.n_blocks, block_m,
-                superblock, self.kk, num_real, mode, self._stream())
-        self._raise_on(err, "score")
+        self._raise_on(self.lib.topk_mips_score_launch(
+            T.data_ptr(), self._ptr(U, b0), self._ptr(live, b0),
+            self.lvals.data_ptr(), self.lids.data_ptr(),
+            self.tmax.data_ptr(), b1 - b0, R, self.n_blocks, block_m,
+            superblock, self.kk, num_real, mode,
+            int(self.paths[0] == "select_sort"), stream), "score")
 
-    def walk(self, i: int = 0) -> None:
-        """Phase 2 on query slice ``i`` (after its phase 1)."""
+    def _walk(self, i: int, stream: int) -> None:
         _, _, bounds, live = self.operands
         b0, b1 = self.slices[i]
         _, block_m, superblock, k, _, mode = self.shape
-        with torch.cuda.device(self.vals.device):
-            err = self.lib.topk_mips_walk_launch(
-                self._ptr(bounds, b0), self._ptr(live, b0),
-                self.lvals.data_ptr(), self.lids.data_ptr(),
-                self.tmax.data_ptr(), self._ptr(self.vals, b0),
-                self._ptr(self.idx, b0), self._ptr(self.stats, b0),
-                self._ptr(self.carry, 0), b1 - b0,
-                self.n_blocks, block_m, superblock, k, self.kk, mode,
-                self._stream())
-        self._raise_on(err, "walk")
+        self._raise_on(self.lib.topk_mips_walk_launch(
+            self._ptr(bounds, b0), self._ptr(live, b0),
+            self.lvals.data_ptr(), self.lids.data_ptr(),
+            self.tmax.data_ptr(), self._ptr(self.vals, b0),
+            self._ptr(self.idx, b0), self._ptr(self.stats, b0),
+            self._ptr(self.carry, 0), b1 - b0,
+            self.n_blocks, block_m, superblock, k, self.kk, mode,
+            stream), "walk")
+
+    def _on_device(self, *phases) -> None:
+        """Each ``(launch, slice)`` on the current stream of the operands'
+        device."""
+        dev = self.vals.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for launch, i in phases:
+                launch(i, stream)
+
+    def score(self, i: int = 0) -> None:
+        """Phase 1 on query slice ``i``."""
+        self._on_device((self._score, i))
+
+    def walk(self, i: int = 0) -> None:
+        """Phase 2 on query slice ``i`` (after its phase 1)."""
+        self._on_device((self._walk, i))
 
     def run(self):
         """Both phases over every slice; returns ``(vals, idx, stats)``."""
-        for i in range(len(self.slices)):
-            self.score(i)
-            self.walk(i)
+        self._on_device(*[(launch, i) for i in range(len(self.slices))
+                          for launch in (self._score, self._walk)])
         return self.vals, self.idx, self.stats
 
 
@@ -286,19 +330,24 @@ def topk_mips(T_sorted: torch.Tensor, U: torch.Tensor,
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev),
                 torch.empty((0, 3), dtype=torch.int32, device=dev))
-    out = KernelPhases(T_sorted, U, tile_bounds, live, k, block_m, mode,
-                       superblock, num_real).run()
+    run = KernelPhases(T_sorted, U, tile_bounds, live, k, block_m, mode,
+                       superblock, num_real)
+    out = run.run()
     topk_mips.launches += 1
-    topk_mips.path_launches[CARRIES[k > SMEM_K]] += 1
+    for path in run.paths:
+        topk_mips.path_launches[path] += 1
+    topk_mips.k_launches[k] = topk_mips.k_launches.get(k, 0) + 1
     return out
 
 
-#: The gate walk's carry: in shared memory up to SMEM_K, global above.
-CARRIES = ("shared_carry", "global_carry")
+#: Each phase's paths (:func:`select_path`, :func:`walk_path`).
+PATHS = ("select_lists", "select_sort", "walk_shared", "walk_global")
 
 #: Calls that launched the CUDA kernel in this process, one per query
 #: batch (its two phases together; plain-version calls on CPU tensors are
-#: not launches), and the same calls by where the walk kept its carry.
-#: Callers reset them to 0 to count a run.
+#: not launches), the same calls by path (each call adds one to its
+#: selection's key and one to its walk's) and by k. Callers reset them to
+#: count a run.
 topk_mips.launches = 0
-topk_mips.path_launches = dict.fromkeys(CARRIES, 0)
+topk_mips.path_launches = dict.fromkeys(PATHS, 0)
+topk_mips.k_launches = {}

@@ -64,7 +64,7 @@ from repro_torch.kernels.gather_scores import (FEW_LANES, gather_scores,
                                                launch_plan)
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.kernels.topk_mips import (MODES, query_slices, topk_mips,
-                                          topk_mips_plain)
+                                          topk_mips_plain, walk_path)
 
 from _torch_parity import assert_topk_equal
 
@@ -518,30 +518,105 @@ def test_ta_engine_on_the_card_matches_the_cpu(budget):
 
 
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("m,r,k,block", [
-    (20000, 50, 257, 256),    # one past the shared-memory carry
-    (20000, 50, 522, 256),    # the streaming ladder's third rung at k = 10
-    (20000, 100, 1500, 128),  # k far past block_m
-    (3000, 17, 3000, 64),     # the whole catalogue (the ladder's last rung)
+@pytest.mark.parametrize("m,r,k,block,b,kind,walk", [
+    # just past k = 256
+    (20000, 50, 257, 256, 70, "decaying", "walk_shared"),
+    # the streaming ladder's third rung at k = 10
+    (20000, 50, 522, 256, 70, "decaying", "walk_shared"),
+    (20000, 100, 1500, 128, 70, "decaying", "walk_shared"),
+    # the whole catalogue (the ladder's last rung)
+    (3000, 17, 3000, 64, 70, "decaying", "walk_shared"),
+    # the tile-wide sort past kk = 16, ties within and across tiles, one
+    # and two query groups, the smallest and largest tiles
+    (6000, 50, 42, 256, 70, "dup", "walk_shared"),
+    (6000, 50, 42, 256, 8, "dup", "walk_shared"),
+    (6000, 50, 138, 256, 8, "dup", "walk_shared"),
+    (6000, 50, 522, 256, 70, "dup", "walk_shared"),
+    (6000, 50, 522, 256, 8, "dup", "walk_shared"),
+    (20000, 50, 42, 64, 8, "dup", "walk_shared"),
+    (20000, 50, 600, 1024, 70, "dup", "walk_shared"),
+    (20000, 20, 13488, 1024, 8, "decaying", "walk_shared"),  # limit
+    (20000, 20, 13489, 1024, 8, "decaying", "walk_global"),  # past
+    (20000, 50, 15000, 256, 70, "dup", "walk_global"),
 ])
-def test_cuda_kernel_past_the_shared_carry_matches_plain_version(m, r, k,
-                                                                 block):
-    """k > 256: the gate walk carries its top-k in global memory; every
-    mode still equals the plain version, values, ids and stats."""
+def test_cuda_kernel_past_the_shared_carry_matches_plain_version(
+        m, r, k, block, b, kind, walk):
+    """kk > 16 selects each tile's list by a warp's sort; the walk keeps
+    each query's carry in shared memory up to ``CARRY_SMEM_BYTES``, in
+    global memory past it. Every mode still equals the plain version,
+    values, ids and stats, and each call adds one to its selection's and
+    its walk's ``path_launches`` and to its k's ``k_launches``."""
     _need_card()
     rng = np.random.default_rng(m + k)
-    T = _catalogue(rng, m, r, "decaying")
+    T = _catalogue(rng, m, r, kind)
     cat = MIPSCatalog(T, block_m=block, superblock=8, device="cuda")
-    U = rng.standard_normal((70, r)).astype(np.float32)
+    U = rng.standard_normal((b, r)).astype(np.float32)
+    kk = min(k, block)
+    assert walk_path(k, kk) == walk
     for mode in MODES:
         args = cat.kernel_args(U, k, mode)
         before = topk_mips.launches
+        paths = dict(topk_mips.path_launches)
+        at_k = topk_mips.k_launches.get(k, 0)
         got = topk_mips(**args)
         assert topk_mips.launches == before + 1
+        grew = {p: n - paths[p] for p, n in topk_mips.path_launches.items()
+                if n != paths[p]}
+        assert grew == {"select_sort": 1, walk: 1}, grew
+        assert topk_mips.k_launches[k] == at_k + 1
         want = topk_mips_plain(**args)
         torch.cuda.synchronize()
         assert_topk_equal(got[:2], want[:2])
         torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+
+
+def test_cuda_kernel_launches_refuse_a_path_they_do_not_take():
+    """The wrapper names each phase's path and the launch runs it or
+    fails: the register lists past kk = 16 and a shared-memory carry past
+    ``CARRY_SMEM_BYTES`` are refused (cudaErrorInvalidValue); the same
+    shapes on a path that takes them launch."""
+    _need_card()
+    from repro_torch.kernels._build import load
+    lib = load("topk_mips")
+    B, R, block_m = 2, 4, 1024
+    single_level = MODES.index("single_level")
+    T = torch.zeros((block_m, R), device="cuda")
+    U = torch.ones((B, R), device="cuda")
+    bounds = torch.ones((B, 1), device="cuda")
+
+    def scratch(kk):
+        return (torch.zeros((B, 1, kk), device="cuda"),
+                torch.zeros((B, 1, kk), dtype=torch.int32, device="cuda"),
+                torch.zeros((B, 1), device="cuda"))
+
+    def score(kk, sort):
+        lv, li, tm = scratch(kk)
+        err = lib.topk_mips_score_launch(
+            T.data_ptr(), U.data_ptr(), None, lv.data_ptr(), li.data_ptr(),
+            tm.data_ptr(), B, R, 1, block_m, 1, kk, block_m, single_level,
+            sort, None)
+        torch.cuda.synchronize()
+        return err
+
+    def walk(k, kk, carry=False):
+        lv, li, tm = scratch(kk)
+        vals = torch.empty((B, k), device="cuda")
+        idx = torch.empty((B, k), dtype=torch.int32, device="cuda")
+        stats = torch.empty((B, 3), dtype=torch.int32, device="cuda")
+        gcarry = torch.empty((B, 4 * k), device="cuda") if carry else None
+        err = lib.topk_mips_walk_launch(
+            bounds.data_ptr(), None, lv.data_ptr(), li.data_ptr(),
+            tm.data_ptr(), vals.data_ptr(), idx.data_ptr(), stats.data_ptr(),
+            None if gcarry is None else gcarry.data_ptr(), B, 1, block_m, 1,
+            k, kk, single_level, None)
+        torch.cuda.synchronize()
+        return err
+
+    assert score(17, 0) != 0
+    assert score(16, 0) == 0 and score(17, 1) == 0
+    assert walk(13_488, 1024) == 0
+    assert walk(13_489, 1024) != 0
+    assert walk(13_489, 1024, carry=True) == 0
 
 
 # auto and the admission ladder on the card against the CPU

@@ -18,7 +18,8 @@ from repro.kernels.topk_mips import (topk_mips_pallas,
 from repro_torch.convert import CATALOG_FIELDS, from_reference
 from repro_torch.kernels.ops import MIPSCatalog
 from repro_torch.kernels.ref import topk_mips_ref
-from repro_torch.kernels.topk_mips import query_slices, topk_mips
+from repro_torch.kernels.topk_mips import (PATHS, query_slices, select_path,
+                                          topk_mips, walk_path)
 
 from _torch_parity import assert_topk_equal, host
 
@@ -238,6 +239,10 @@ def _decomposed(T_sorted, U, tile_bounds, live, k, block_m, mode,
     ("num_real<k", 3, 4, 5, 64, 1),
     ("duplicates", 900, 10, 7, 64, 4),
     ("non-monotone", 2048, 16, 5, 128, 4),
+    ("kk>16", 4096, 16, 42, 256, 4),        # the tile-wide sort
+    ("kk>16", 4096, 16, 138, 256, 4),
+    ("kk>16", 4096, 16, 522, 256, 4),       # and the block walk
+    ("duplicates", 1536, 10, 42, 256, 4),
 ])
 def test_kernel_decomposition_matches_plain_version(case, m, r, k, block,
                                                     sb):
@@ -253,7 +258,7 @@ def test_kernel_decomposition_matches_plain_version(case, m, r, k, block,
          else rng.standard_normal((m, r)).astype(np.float32))
     if case == "flat":
         T /= np.linalg.norm(T, axis=1, keepdims=True)
-    if case == "duplicates":        # runs of 3 straddle the tile boundaries
+    if case == "duplicates":        # runs of 3 inside and across tiles
         T = np.repeat(T[: m // 3], 3, axis=0)
     ref = RefCatalog(T, block_m=block, superblock=sb)
     cat = _port(ref)
@@ -329,17 +334,47 @@ def test_k_past_the_shared_memory_carry_matches_reference():
         _assert_same(_decomposed(**args), topk_mips(**args))
 
 
-@pytest.mark.parametrize("B,n_blocks,kk,k,budget", [
-    (64, 1272, 256, 522, 256 << 20),    # LSHTC-like, the ladder's k = 522
-    (10, 64, 64, 100_000, 4 << 20),     # the carry alone past the budget
-])
-def test_query_slices_count_the_global_carry(B, n_blocks, kk, k, budget):
-    """Past 256 the slices also hold each query's global carry of
-    ``4 k + 2 kk`` words within the budget."""
+@pytest.mark.parametrize("B,n_blocks,kk,k,budget,path", [
+    # LSHTC-like, the ladder's k = 522: a shared-memory carry, no scratch
+    (64, 1272, 256, 522, 256 << 20, "walk_shared"),
+    (64, 1272, 256, 14_256, 256 << 20, "walk_shared"),  # the limit
+    (64, 1272, 256, 14_257, 256 << 20, "walk_global"),  # just past
+    (10, 64, 1024, 13_488, 4 << 20, "walk_shared"),
+    (10, 64, 1024, 13_489, 4 << 20, "walk_global"),
+    (10, 64, 64, 100_000, 4 << 20, "walk_global"),  # the carry alone
+])                                                         # past the budget
+def test_query_slices_count_the_global_carry(B, n_blocks, kk, k, budget,
+                                             path):
+    """The gate walk keeps each query's carry halves and candidates
+    (``4 k + 4 kk`` words) in shared memory up to ``CARRY_SMEM_BYTES``,
+    and beyond it the carry halves (``4 k`` words) in a global scratch;
+    the slices hold that scratch within the budget."""
+    assert walk_path(k, kk) == path
     slices = query_slices(B, n_blocks, kk, budget, k=k)
     assert slices[0][0] == 0 and slices[-1][1] == B
-    per_query = n_blocks * (8 * kk + 4) + 4 * (4 * k + 2 * kk)
+    per_query = n_blocks * (8 * kk + 4)
+    if path == "walk_global":
+        per_query += 4 * 4 * k
+    else:
+        assert slices == query_slices(B, n_blocks, kk, budget)
     rows = slices[0][1] - slices[0][0]
     assert rows == 1 or rows * per_query <= budget
     assert query_slices(B, n_blocks, kk, budget, k=256) == query_slices(
         B, n_blocks, kk, budget)
+
+
+@pytest.mark.parametrize("k,kk,select,walk", [
+    (10, 10, "select_lists", "walk_shared"),
+    (16, 16, "select_lists", "walk_shared"),
+    (17, 17, "select_sort", "walk_shared"),
+    (256, 256, "select_sort", "walk_shared"),
+    (257, 256, "select_sort", "walk_shared"),
+    (3000, 64, "select_sort", "walk_shared"),
+    (14_257, 256, "select_sort", "walk_global"),
+])
+def test_kernel_paths_by_k(k, kk, select, walk):
+    """The paths each phase takes, as ``topk_mips.path_launches`` names
+    them: register lists to kk = 16, the sort past it; the walk's carry in
+    shared memory while it fits, in a global scratch past it."""
+    assert (select_path(kk), walk_path(k, kk)) == (select, walk)
+    assert {select, walk} <= set(PATHS)
